@@ -1,0 +1,498 @@
+"""Query execution: the Database facade over the planner/engine split.
+
+Port of ``repro.core.executor.Database`` on plain tables.  Owns the
+tables, built indexes and layout state of one database and executes
+benchmark statements, returning *measured* statistics in the same
+tuple-touch units the what-if cost model estimates in.  Cost, latency,
+the simulated clock and the monitor window are computed exactly as in
+the reference; only ``ExecStats.wall_s`` (a host clock around the
+dispatch, synchronised with the device when the table lives on CUDA)
+and ``tier`` differ by nature.
+
+Not ported yet (they raise ``NotImplementedError``): joins (HIGH-S),
+sharded storage and ``reshard``, crack-on-scan, index decay,
+shard-aware tuning, fault injection and VBP indexes.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import cost_model as cm
+from repro_torch.core.cost_model import IndexDescriptor
+from repro_torch.core.engine import ScanEngine
+from repro_torch.core.index import advance_build, make_index
+from repro_torch.core.layout import LayoutState, scan_width_factor
+from repro_torch.core.monitor import QueryRecord, WorkloadMonitor
+from repro_torch.core.planner import BuiltIndex, QueryPlanner, scan_cost
+from repro_torch.core.table import Table, insert_rows, update_rows
+
+
+@dataclass
+class Query:
+    kind: str  # 'scan' | 'update' | 'insert'
+    table: str
+    attrs: Tuple[int, ...] = ()
+    los: Tuple[int, ...] = ()
+    his: Tuple[int, ...] = ()
+    agg_attr: int = 2
+    proj_attrs: Tuple[int, ...] = ()
+    set_attrs: Tuple[int, ...] = ()
+    set_vals: Tuple[int, ...] = ()
+    rows: Optional[np.ndarray] = None  # INSERT payload
+    # HIGH-S equi-join: R.join_attr == S.join_inner_attr
+    join_table: Optional[str] = None
+    join_attr: int = 0
+    join_inner_attr: int = 0
+    template: str = ""
+
+    @property
+    def accessed_attrs(self) -> Tuple[int, ...]:
+        return tuple(
+            sorted(
+                set(self.attrs)
+                | set(self.proj_attrs)
+                | ({self.agg_attr} if self.kind == "scan" else set())
+                | set(self.set_attrs)
+            )
+        )
+
+
+@dataclass
+class ExecStats:
+    cost_units: float  # tuple-touch units (simulated work)
+    latency_ms: float  # simulated latency
+    wall_s: float  # measured wall time of the dispatch
+    used_index: bool
+    agg_sum: int = 0
+    count: int = 0
+    rows_modified: int = 0
+    populate_units: float = 0.0  # in-query VBP population work
+    shard_pages: Tuple[int, ...] = ()  # shard-aware tuning only
+    tier: str = ""  # ScanEngine.TIERS
+
+
+class Database:
+    """Tables + index configuration + layout + monitor + simulated clock."""
+
+    def __init__(
+        self,
+        tables: Dict[str, Table],
+        time_per_unit_ms: float = 1e-4,
+        monitor_window: int = 256,
+        monitor_max_age_ms: float | None = None,
+        num_shards: int = 1,
+    ):
+        if num_shards != 1:
+            raise NotImplementedError("sharded storage is not ported yet")
+        for name, t in tables.items():
+            if not isinstance(t, Table):
+                raise NotImplementedError(
+                    f"table {name!r}: only plain tables are ported"
+                )
+        self.tables: Dict[str, Table] = dict(tables)
+        self.indexes: Dict[str, BuiltIndex] = {}
+        self.layouts: Dict[str, LayoutState] = {
+            name: LayoutState(n_attrs=t.n_attrs, n_pages=t.n_pages)
+            for name, t in self.tables.items()
+        }
+        self.monitor = WorkloadMonitor(
+            window=monitor_window, max_age_ms=monitor_max_age_ms
+        )
+        self.clock_ms: float = 0.0
+        self.time_per_unit_ms = time_per_unit_ms
+        self.update_cap = 512  # max rows materialised per UPDATE
+        # Options of the reference whose slices are not ported yet;
+        # setting one makes the next statement raise.
+        self.shard_aware_tuning: bool = False
+        self.crack_on_scan: bool = False
+        self.index_decay: bool = False
+        self.fault_injector = None
+        self._zone_maps: Dict[tuple, tuple] = {}
+        self.planner = QueryPlanner(self)
+        self.engine = ScanEngine()
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.tables.values())).device
+
+    def _check_options(self) -> None:
+        for flag in ("shard_aware_tuning", "crack_on_scan", "index_decay"):
+            if getattr(self, flag):
+                raise NotImplementedError(f"{flag} is not ported yet")
+        if self.fault_injector is not None:
+            raise NotImplementedError("fault injection is not ported yet")
+
+    def reshard(self, num_shards: int) -> None:
+        raise NotImplementedError("sharded storage is not ported yet")
+
+    def _timed(self, fn, *args, **kwargs):
+        """Run ``fn`` and return (result, wall seconds of finished
+        work): device work is synchronised inside the window."""
+        cuda = self.device.type == "cuda"
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return out, time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # Index configuration actions (used by tuners)
+    # ------------------------------------------------------------------
+    def create_index(self, desc: IndexDescriptor, scheme: str) -> BuiltIndex:
+        t = self.tables[desc.table]
+        if desc.name in self.indexes:
+            return self.indexes[desc.name]
+        if scheme not in ("vap", "full"):
+            raise NotImplementedError(f"{scheme} indexes are not ported yet")
+        bi = BuiltIndex(desc=desc, scheme=scheme, created_ms=self.clock_ms)
+        bi.vap = make_index(t.capacity, t.device)
+        self.indexes[desc.name] = bi
+        return bi
+
+    def drop_index(self, name: str) -> None:
+        self.indexes.pop(name, None)
+
+    def indexes_on(self, table: str):
+        return [b for b in self.indexes.values() if b.desc.table == table]
+
+    def total_index_bytes(self) -> float:
+        return sum(b.size_bytes() for b in self.indexes.values())
+
+    def zone_map(self, table: str, attr: int):
+        """Per-page (min, max) of ``attr`` over the fully populated
+        pages (advisory page-pruning metadata); pages outside the full
+        watermark get an empty (max < min) range.  Cached per (table,
+        attr) until the table mutates."""
+        key = (table, attr)
+        got = self._zone_maps.get(key)
+        if got is not None:
+            return got
+        t = self.tables[table]
+        full = t.n_rows // t.page_size
+        mins = np.full(t.n_pages, np.iinfo(np.int32).max, np.int64)
+        maxs = np.full(t.n_pages, np.iinfo(np.int32).min, np.int64)
+        if full:
+            vals = t.data[:full, :, attr]
+            mins[:full] = vals.amin(dim=1).cpu().numpy()
+            maxs[:full] = vals.amax(dim=1).cpu().numpy()
+        got = (mins, maxs)
+        self._zone_maps[key] = got
+        return got
+
+    def _choose_index(self, q: Query) -> Optional[BuiltIndex]:
+        return self.planner.choose_index(q)
+
+    # ------------------------------------------------------------------
+    # Execution
+    # ------------------------------------------------------------------
+    def execute(self, q: Query, observe: bool = True) -> ExecStats:
+        if q.kind == "scan":
+            stats = self._exec_scan(q)
+        elif q.kind == "update":
+            stats = self._exec_update(q)
+        elif q.kind == "insert":
+            stats = self._exec_insert(q)
+        else:
+            raise ValueError(q.kind)
+        self.engine.dispatch_complete()
+        self.clock_ms += stats.latency_ms
+        if observe:
+            n_rows = self.tables[q.table].n_rows
+            self.monitor.observe(
+                QueryRecord(
+                    kind=q.kind,
+                    table=q.table,
+                    pred_attrs=tuple(q.attrs),
+                    accessed_attrs=q.accessed_attrs,
+                    selectivity=(
+                        stats.count / max(n_rows, 1)
+                        if q.kind == "scan"
+                        else stats.rows_modified / max(n_rows, 1)
+                    ),
+                    tuples_scanned=int(stats.cost_units),
+                    used_index=stats.used_index,
+                    rows_modified=stats.rows_modified,
+                    ts_ms=self.clock_ms,
+                    template=q.template,
+                    shard_pages=stats.shard_pages,
+                    pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
+                )
+            )
+        return stats
+
+    def _exec_scan(self, q: Query) -> ExecStats:
+        self._check_options()
+        if q.join_table is not None:
+            raise NotImplementedError("joins (HIGH-S) are not ported yet")
+        t = self.tables[q.table]
+        layout = self.layouts[q.table]
+        plan = self.planner.plan_scan(q)
+        bi = plan.index
+        r, wall = self._timed(
+            self.engine.scan,
+            t,
+            plan,
+            tuple(q.attrs),
+            q.los,
+            q.his,
+            self.clock_ms_i32(),
+            q.agg_attr,
+        )
+        vals = torch.stack([r.agg_sum, r.count, r.pages_scanned,
+                            r.entries_probed, r.start_page]).tolist()
+        agg_sum, count, pages, probed, r_start = vals
+        if plan.path == "table":
+            start_page, entries = 0, 0.0
+        elif plan.path == "hybrid":
+            start_page, entries = r_start, float(probed)
+        else:  # pure index scan: no table pages touched
+            start_page, entries = t.n_pages, float(probed)
+        cost = scan_cost(
+            layout, q.accessed_attrs, t.page_size, pages, entries, start_page
+        )
+        used = bi is not None
+        if used:
+            bi.last_used_ms = self.clock_ms
+        return ExecStats(
+            cost_units=cost,
+            latency_ms=cost * self.time_per_unit_ms,
+            wall_s=wall,
+            used_index=used,
+            agg_sum=agg_sum,
+            count=count,
+            populate_units=0.0,
+            tier=self.engine.last_tier or "",
+        )
+
+    # ------------------------------------------------------------------
+    # Batched execution (read bursts)
+    # ------------------------------------------------------------------
+    def execute_batch(
+        self, queries, observe: bool = True, use_kernel: bool = False
+    ):
+        """Execute a burst of queries, batching compatible read scans.
+
+        Scans that share (table, attrs, agg_attr) and access path run
+        in ONE dispatch (with ``use_kernel`` the table-scan and hybrid
+        groups go through kernel K1).  Results and accounting are
+        bit-identical to ``[self.execute(q) for q in queries]``: a run
+        of consecutive scans executes against the burst-start snapshot
+        (reads do not mutate, and every version predates it), cost /
+        clock / monitor accounting is replayed per query in order, and
+        mutations flush the pending burst and run through ``execute``.
+        Returns the per-query ``ExecStats`` in input order.
+        """
+        out: list = [None] * len(queries)
+        pending: list = []  # [(position, query)]
+
+        def flush():
+            if pending:
+                self._exec_scan_burst(pending, out, observe, use_kernel)
+                pending.clear()
+
+        for i, q in enumerate(queries):
+            if q.kind == "scan" and q.join_table is None:
+                pending.append((i, q))
+            else:
+                flush()
+                out[i] = self.execute(q, observe=observe)
+        flush()
+        return out
+
+    def _exec_scan_burst(
+        self, pending, out, observe: bool, use_kernel: bool
+    ) -> None:
+        """Plan, group and execute one burst of batchable scans."""
+        self._check_options()
+        self.planner.begin_snapshot()
+        try:
+            groups: Dict[tuple, list] = {}
+            for pos, q in pending:
+                plan = self.planner.plan_scan(q)
+                key = (q.table, tuple(q.attrs), q.agg_attr) + plan.group_key
+                groups.setdefault(key, []).append((pos, q, plan))
+
+            ts = self.clock_ms_i32()
+            # pos -> (sum, count, pages, entries, start_page, wall, tier)
+            raw: Dict[int, tuple] = {}
+            for group_key, members in groups.items():
+                table_name, attrs, agg_attr, _path, _idx = group_key
+                t = self.tables[table_name]
+                dev = t.device
+                los = torch.tensor([q.los for _, q, _ in members],
+                                   dtype=torch.int32, device=dev)
+                his = torch.tensor([q.his for _, q, _ in members],
+                                   dtype=torch.int32, device=dev)
+                tss = torch.full((len(members),), ts, dtype=torch.int32,
+                                 device=dev)
+                plan = members[0][2]
+                r, wall = self._timed(
+                    self.engine.scan_batch,
+                    t,
+                    plan.path,
+                    plan.index_state,
+                    plan.key_attrs,
+                    attrs,
+                    los,
+                    his,
+                    tss,
+                    agg_attr,
+                    use_kernel=use_kernel,
+                )
+                tier = self.engine.last_tier or ""
+                # Drain point between this group's dispatch and the
+                # next (outside the timed region).
+                self.engine.dispatch_complete()
+                rows = torch.stack(list(r)).cpu().tolist()
+                for k, (pos, _q, _plan) in enumerate(members):
+                    raw[pos] = tuple(int(col[k]) for col in rows) + (
+                        wall / len(members),
+                        tier,
+                    )
+        finally:
+            self.planner.end_snapshot()
+
+        # Accounting replay in input order (host-side, same arithmetic
+        # and clock/monitor trajectory as the per-query loop).
+        plan_by_pos = {
+            pos: plan for ms in groups.values() for pos, _q, plan in ms
+        }
+        for pos, q in pending:
+            agg_sum, count, n_pages, n_entries, start_page, wall, tier = raw[
+                pos
+            ]
+            t = self.tables[q.table]
+            layout = self.layouts[q.table]
+            bi_q = plan_by_pos[pos].index
+            cost = scan_cost(
+                layout,
+                q.accessed_attrs,
+                t.page_size,
+                n_pages,
+                float(n_entries),
+                start_page,
+            )
+            used = bi_q is not None
+            if used:
+                bi_q.last_used_ms = self.clock_ms
+            stats = ExecStats(
+                cost_units=cost,
+                latency_ms=cost * self.time_per_unit_ms,
+                wall_s=wall,
+                used_index=used,
+                agg_sum=agg_sum,
+                count=count,
+                populate_units=0.0,
+                tier=tier,
+            )
+            self.clock_ms += stats.latency_ms
+            if observe:
+                self.monitor.observe(
+                    QueryRecord(
+                        kind="scan",
+                        table=q.table,
+                        pred_attrs=tuple(q.attrs),
+                        accessed_attrs=q.accessed_attrs,
+                        selectivity=stats.count / max(t.n_rows, 1),
+                        tuples_scanned=int(stats.cost_units),
+                        used_index=stats.used_index,
+                        rows_modified=0,
+                        ts_ms=self.clock_ms,
+                        template=q.template,
+                        shard_pages=stats.shard_pages,
+                        pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
+                    )
+                )
+            out[pos] = stats
+
+    def _exec_update(self, q: Query) -> ExecStats:
+        self._check_options()
+        t = self.tables[q.table]
+        layout = self.layouts[q.table]
+        (new_t, n_upd), wall = self._timed(
+            update_rows,
+            t,
+            tuple(q.attrs),
+            q.los,
+            q.his,
+            tuple(q.set_attrs),
+            tuple(q.set_vals),
+            self.clock_ms_i32(),
+            max_new=self.update_cap,
+        )
+        self.tables[q.table] = new_t
+        # Row lookup: table scan unless an index matches the predicate.
+        bi = self._choose_index(q)
+        if bi is not None and bi.scheme in ("vap",):
+            frac = bi.built_fraction(t)
+            lookup = (
+                1.0 - frac
+            ) * float(t.n_rows) + cm.INDEX_PROBE_COST * n_upd
+            bi.last_used_ms = self.clock_ms
+        else:
+            width = scan_width_factor(layout, tuple(q.attrs), 0)
+            lookup = float(t.n_rows) * (width / layout.n_attrs)
+        maint = cm.tau_maintenance(n_upd) * max(
+            len(self.indexes_on(q.table)), 0
+        )
+        cost = lookup + maint + float(n_upd)
+        self._after_mutation(q.table)
+        return ExecStats(
+            cost_units=cost,
+            latency_ms=cost * self.time_per_unit_ms,
+            wall_s=wall,
+            used_index=bi is not None,
+            rows_modified=n_upd,
+        )
+
+    def _exec_insert(self, q: Query) -> ExecStats:
+        self._check_options()
+        t = self.tables[q.table]
+        rows = np.asarray(q.rows, np.int32)
+        new_t, wall = self._timed(
+            insert_rows,
+            t,
+            torch.from_numpy(rows),
+            self.clock_ms_i32(),
+            rows.shape[0],
+        )
+        self.tables[q.table] = new_t
+        n = rows.shape[0]
+        maint = cm.tau_maintenance(n) * max(len(self.indexes_on(q.table)), 0)
+        cost = float(n) + maint
+        self._after_mutation(q.table)
+        return ExecStats(
+            cost_units=cost,
+            latency_ms=cost * self.time_per_unit_ms,
+            wall_s=wall,
+            used_index=False,
+            rows_modified=n,
+        )
+
+    def _after_mutation(self, table: str) -> None:
+        """Zone maps summarise page contents, so they re-derive."""
+        for key in [k for k in self._zone_maps if k[0] == table]:
+            del self._zone_maps[key]
+
+    # ------------------------------------------------------------------
+    # Tuner-side physical work, charged by the caller
+    # ------------------------------------------------------------------
+    def vap_build_step(self, bi: BuiltIndex, pages: int) -> float:
+        """Advance a VAP/FULL index by one resumable build quantum of
+        ``pages`` pages (``index.advance_build``); returns work units."""
+        t = self.tables[bi.desc.table]
+        bi.vap, done = advance_build(bi.vap, t, bi.desc.key_attrs, pages)
+        if bi.vap.built_pages >= t.n_rows // t.page_size:
+            bi.complete = True
+            bi.building = False
+        return float(done * t.page_size)
+
+    def clock_ms_i32(self) -> int:
+        """Snapshot timestamp of the next statement (int32 range)."""
+        return min(int(self.clock_ms) + 1, 2**31 - 2)

@@ -1,0 +1,273 @@
+"""Predictive index tuner -- Algorithm 1 of the paper.
+
+Port of ``repro.core.tuner`` for plain tables.  Every tuning cycle
+runs the observe-react-learn template:
+
+  Stage I   workload classification (CART decision tree)
+  Stage II  candidate enumeration, what-if utility, 0-1 knapsack under
+            the storage budget, amortised state transition using
+            lightweight VAP build quanta
+  Stage III Holt-Winters update with the observed overall utility; the
+            forecast feeds the next cycle's knapsack
+
+The tuner retains forecaster state for dropped indexes so their future
+utility stays predictable.  The forecaster runs in float32 on the
+database's device.  Shard-aware scheduling, hot-range page lists and
+decay (their database options) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core import cost_model as cm
+from repro_torch.core import forecaster as hw
+from repro_torch.core import knapsack
+from repro_torch.core.build_service import (
+    BuildQuantum,
+    CyclePlan,
+    apply_quantum,
+)
+from repro_torch.core.classifier import (
+    READ_INTENSIVE,
+    UNKNOWN,
+    WRITE_INTENSIVE,
+    CartClassifier,
+    default_classifier,
+)
+from repro_torch.core.cost_model import IndexDescriptor
+from repro_torch.core.executor import Database
+from repro_torch.core.index import build_pages_remaining
+
+
+@dataclass
+class TunerConfig:
+    storage_budget_bytes: float = 256e6
+    pages_per_cycle: int = 32  # VAP lightweight build step
+    max_build_pages_per_cycle: int = 64  # total across all building indexes
+    season_len: int = 16  # Holt-Winters seasonality period (cycles)
+    alpha: float = 0.5
+    beta: float = 0.3
+    gamma: float = 0.4
+    u_min_read: float = 0.0  # min forecast utility to keep an index
+    u_min_write: float = 0.25  # scaled-up threshold in write phases
+    candidate_min_count: int = 3  # appearances in window before considering
+    max_candidates: int = 16
+    redundancy_dampening: float = 0.5  # utility factor for correlated cands
+
+
+def enumerate_candidates(
+    db: Database, min_count: int, max_candidates: int
+) -> List[Tuple[IndexDescriptor, int]]:
+    """Candidate single- and two-attribute indexes from the monitor's
+    predicate statistics: attribute sets seen at least ``min_count``
+    times in the window, most frequent first."""
+    out: List[Tuple[IndexDescriptor, int]] = []
+    for table in db.monitor.tables():
+        for attrs, count in db.monitor.attr_set_counts(table).most_common():
+            if count < min_count:
+                continue
+            key = tuple(attrs[:2])  # engine supports 1- and 2-attr keys
+            out.append((IndexDescriptor(table, key), count))
+            if len(key) > 1:  # the single-attr prefix is also a candidate
+                out.append((IndexDescriptor(table, key[:1]), count))
+    seen: Dict[str, Tuple[IndexDescriptor, int]] = {}
+    for desc, count in out:
+        if desc.name not in seen or seen[desc.name][1] < count:
+            seen[desc.name] = (desc, count)
+    ranked = sorted(seen.values(), key=lambda dc: -dc[1])
+    return ranked[:max_candidates]
+
+
+class PredictiveTuner:
+    """The paper's tuner: predictive DL + VAP scheme.
+
+    ``use_forecaster=False`` degrades the decision logic to the purely
+    retrospective variant and ``immediate=True`` to the immediate
+    variant (k=1) -- the two DL baselines of Figure 6.
+    """
+
+    name = "predictive"
+    scheme = "vap"
+
+    def __init__(
+        self,
+        db: Database,
+        config: TunerConfig | None = None,
+        classifier: Optional[CartClassifier] = None,
+        use_forecaster: bool = True,
+        immediate: bool = False,
+    ):
+        self.db = db
+        self.cfg = config or TunerConfig()
+        self.classifier = classifier or default_classifier()
+        self.use_forecaster = use_forecaster
+        self.immediate = immediate
+        self.models: Dict[str, hw.HWState] = {}  # per-index forecaster
+        self.descs: Dict[str, IndexDescriptor] = {}  # every desc ever seen
+        self.forecasts: Dict[str, float] = {}  # U from last Stage III
+        self.last_label: int = UNKNOWN
+        self.cycles: int = 0
+
+    def tuning_cycle(self, idle: bool = False) -> float:
+        """One serialized cycle: decide, then apply every build
+        quantum inline."""
+        plan = self.decide(idle=idle)
+        work = plan.decide_work
+        for quantum in plan.quanta:
+            work += apply_quantum(self.db, quantum)
+        return work
+
+    def decide(self, idle: bool = False) -> CyclePlan:
+        """The decision stages of Algorithm 1, with the cycle's build
+        work returned as ``BuildQuantum`` records."""
+        db, cfg = self.db, self.cfg
+        for flag in ("shard_aware_tuning", "index_decay", "crack_on_scan"):
+            if getattr(db, flag, False):
+                raise NotImplementedError(f"{flag} is not ported yet")
+        db.monitor.prune(db.clock_ms)
+
+        # Stage I: workload classification
+        feats, n = db.monitor.snapshot_features()
+        label = self.classifier.predict(feats, n_samples=n)
+        if label != UNKNOWN:
+            self.last_label = label
+
+        # Stage II: action generation ---------------------------------
+        min_count = 1 if self.immediate else cfg.candidate_min_count
+        for desc, _count in enumerate_candidates(
+            db, min_count, cfg.max_candidates
+        ):
+            self.descs.setdefault(desc.name, desc)
+
+        if self.immediate:
+            # k=1: only the most recent statement informs the decision.
+            recs = list(db.monitor.records)[-1:]
+            scans = {}
+            muts = {}
+            for r in recs:
+                bucket = scans if r.kind == "scan" else muts
+                bucket.setdefault(r.table, []).append(r)
+                if r.pred_attrs:
+                    d = IndexDescriptor(r.table, tuple(r.pred_attrs[:2]))
+                    self.descs.setdefault(d.name, d)
+        else:
+            scans = {
+                t: list(db.monitor.scan_records(t))
+                for t in db.monitor.tables()
+            }
+            muts = {
+                t: list(db.monitor.mutator_records(t))
+                for t in db.monitor.tables()
+            }
+
+        names = list(self.descs)
+        utilities, sizes, force = [], [], []
+        observed: Dict[str, float] = {}
+        for name in names:
+            desc = self.descs[name]
+            n_rows = db.tables[desc.table].n_rows
+            o = cm.overall_utility(
+                desc,
+                scans.get(desc.table, ()),
+                muts.get(desc.table, ()),
+                n_rows,
+            )
+            upd_u = cm.update_lookup_utility(
+                desc, muts.get(desc.table, ()), n_rows
+            )
+            o = max(o, 0.0) + upd_u
+            observed[name] = o
+            if self.use_forecaster and name in self.models:
+                u = max(self.forecasts.get(name, o), o)
+            else:
+                u = o
+            utilities.append(u)
+            sizes.append(cm.index_size_bytes(n_rows))
+            force.append(name in db.indexes and upd_u > 0.0)
+
+        # Redundancy dampening: correlated candidates (same leading
+        # attribute as an already-built index) get discounted.
+        built_leading = {
+            (b.desc.table, b.desc.key_attrs[0]) for b in db.indexes.values()
+        }
+        for i, name in enumerate(names):
+            d = self.descs[name]
+            correlated = (d.table, d.key_attrs[0]) in built_leading
+            if name not in db.indexes and correlated:
+                utilities[i] *= cfg.redundancy_dampening
+
+        thresholds = {
+            WRITE_INTENSIVE: cfg.u_min_write,
+            READ_INTENSIVE: cfg.u_min_read,
+        }
+        u_min = thresholds.get(self.last_label, cfg.u_min_read)
+        u_arr = np.asarray(utilities, np.float64)
+        scale = max(u_arr.max(), 1.0) if u_arr.size else 1.0
+        eligible = (u_arr / scale) > u_min
+
+        keep = knapsack.solve(
+            np.where(eligible, u_arr, 0.0),
+            np.asarray(sizes),
+            cfg.storage_budget_bytes,
+            force_keep=np.asarray(force, bool),
+        )
+
+        # State transition (amortised): drops now, builds via VAP steps.
+        chosen = {names[i] for i in range(len(names)) if keep[i]}
+        for name in list(db.indexes):
+            if name not in chosen:
+                db.drop_index(name)
+        for name in chosen:
+            if name not in db.indexes:
+                db.create_index(self.descs[name], scheme=self.scheme)
+
+        # Lightweight build work, bounded per cycle and rebalanced
+        # across building indexes by forecast utility.
+        quanta: List[BuildQuantum] = []
+        util_by_name = dict(zip(names, utilities))
+        building = [
+            b
+            for b in db.indexes.values()
+            if b.scheme in ("vap",) and b.building
+        ]
+        steps = (
+            cm.allocate_cycle_budget(
+                [
+                    float(util_by_name.get(b.desc.name, 0.0))
+                    for b in building
+                ],
+                [self._build_pages_left(b) for b in building],
+                cfg.max_build_pages_per_cycle,
+                cfg.pages_per_cycle,
+            )
+            if building
+            else []
+        )
+        for b, step in zip(building, steps):
+            step = int(step)
+            if step <= 0:
+                continue
+            u = float(util_by_name.get(b.desc.name, 0.0))
+            quanta.append(BuildQuantum(b.desc.name, step, utility=u))
+
+        # Stage III: index utility forecasting ------------------------
+        if self.use_forecaster:
+            for name in names:
+                st = self.models.get(name)
+                if st is None:
+                    st = hw.init_state(self.cfg.season_len, device=db.device)
+                st = hw.update(
+                    st, observed[name], cfg.alpha, cfg.beta, cfg.gamma
+                )
+                self.models[name] = st
+                self.forecasts[name] = float(hw.forecast(st, 1))
+        self.cycles += 1
+        return CyclePlan(quanta=quanta)
+
+    def _build_pages_left(self, b) -> int:
+        """Pages this building index still has to cover."""
+        return int(build_pages_remaining(b.vap, self.db.tables[b.desc.table]))

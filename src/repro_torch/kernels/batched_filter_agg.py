@@ -1,0 +1,158 @@
+"""K1: multi-query fused filter+aggregate table scan.
+
+Port of the Pallas TPU kernel ``repro.kernels.batched_filter_agg.
+batched_filter_agg``.  One launch evaluates a whole batch of
+conjunctive range-aggregate queries over shared column planes; the
+CUDA C++ kernel is ``csrc/filter_agg.cu`` (``batched_filter_agg_launch``,
+where the source note explains the design and what bounds it).
+
+``batched_filter_agg`` is the wrapper: for tensors on the CPU it takes
+``batched_filter_agg_plain``, the plain PyTorch version beside it;
+for CUDA tensors it launches the kernel or raises.  ``launches``
+counts kernel launches.
+
+Column planes are (n_pages, page_size) int32 and may be strided views
+of the table's (n_pages, page_size, n_attrs) array (``data[..., a]``):
+the kernel reads every plane with its own element stride between
+consecutive rows, so a column is never copied per dispatch.
+
+Tiling: one CUDA block scans ``block_pages`` whole pages
+(``tile_pages``, about ``TILE_ROWS`` rows).  The result does not
+depend on the tile size -- int32 additions wrap associatively and
+commutatively; tests/test_torch_kernels_cuda.py holds the kernel
+against the plain version at several tile sizes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ref import batched_filter_agg_ref
+
+I32_MIN = -(2**31)
+I32_MAX = 2**31 - 1
+
+# Rows one CUDA block scans: 256 threads x 4 rows x 4 passes.
+TILE_ROWS = 4096
+
+launches = 0  # kernel launches since the last reset (plain runs excluded)
+
+
+def tile_pages(n_pages: int, page_size: int) -> int:
+    """Pages per CUDA block: whole pages summing to about ``TILE_ROWS``
+    rows (at least one page, at most the table)."""
+    return max(1, min(int(n_pages), TILE_ROWS // int(page_size)))
+
+
+def _row_stride(plane: torch.Tensor, shape, device, name: str) -> int:
+    """Element stride between consecutive rows of a (n_pages,
+    page_size) plane whose rows are evenly spaced in memory."""
+    if plane.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {plane.dtype}")
+    if tuple(plane.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(plane.shape)}, "
+                         f"expected {tuple(shape)}")
+    if plane.device != device:
+        raise ValueError(f"{name} is on {plane.device}, expected {device}")
+    stride = plane.stride(1)
+    if plane.shape[0] > 1 and plane.stride(0) != plane.shape[1] * stride:
+        raise ValueError(f"{name} rows are not evenly spaced "
+                         f"(strides {plane.stride()})")
+    return stride
+
+
+def check_planes(planes, names=("pred0", "pred1", "agg", "begin_ts",
+                                "end_ts")):
+    """Validate the five column planes; returns their row strides."""
+    shape, device = planes[0].shape, planes[0].device
+    if len(shape) != 2:
+        raise ValueError(f"column planes must be 2-D, got {tuple(shape)}")
+    return [_row_stride(x, shape, device, n) for x, n in zip(planes, names)]
+
+
+def batched_filter_agg_plain(pred0, pred1, agg, begin_ts, end_ts, los0,
+                             his0, los1, his1, tss, start_pages):
+    """Plain PyTorch version of K1: the oracle
+    ``ref.batched_filter_agg_ref``."""
+    return batched_filter_agg_ref(pred0, pred1, agg, begin_ts, end_ts, los0,
+                                  his0, los1, his1, tss, start_pages)
+
+
+def _query_operand(x, n_queries, device, name):
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.dtype != torch.int32 or x.shape != (n_queries,):
+        raise ValueError(f"{name} must be ({n_queries},) int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    return x.contiguous()
+
+
+def batched_filter_agg(
+    pred0,
+    pred1,
+    agg,
+    begin_ts,
+    end_ts,
+    los0,
+    his0,
+    los1,
+    his1,
+    tss,
+    start_pages,
+    block_pages: int | None = None,
+):
+    """Multi-query fused filter+aggregate scan.
+
+    Column planes are (n_pages, page_size) int32, shared by every query
+    of the batch; per-query operands ``los0/his0/los1/his1/tss/
+    start_pages`` are (n_queries,) int32 tensors on the same device.
+    Single-attribute queries pass los1 = INT32_MIN, his1 = INT32_MAX;
+    full scans pass start_pages = 0.  Returns (sums, counts), each
+    (n_queries,) int32.
+    """
+    planes = (pred0, pred1, agg, begin_ts, end_ts)
+    strides = check_planes(planes)
+    dev = pred0.device
+    n_pages, page_size = pred0.shape
+    nq = los0.shape[0]
+    ops = [
+        _query_operand(x, nq, dev, n)
+        for x, n in zip(
+            (los0, his0, los1, his1, tss, start_pages),
+            ("los0", "his0", "los1", "his1", "tss", "start_pages"),
+        )
+    ]
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K1 kernel for device {dev}")
+    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    if nq == 0 or n_pages == 0:
+        return out_sum, out_cnt
+    if dev.type == "cpu":
+        return batched_filter_agg_plain(*planes, *ops)
+    from repro_torch.kernels._build import library
+
+    global launches
+    bp = int(block_pages or tile_pages(n_pages, page_size))
+    plane_args = []
+    for x, s in zip(planes, strides):
+        plane_args += [x.data_ptr(), s]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().batched_filter_agg_launch(
+            *plane_args,
+            n_pages * page_size,
+            page_size,
+            bp * page_size,
+            *[x.data_ptr() for x in ops],
+            nq,
+            out_sum.data_ptr(),
+            out_cnt.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    launches += 1
+    return out_sum, out_cnt

@@ -1,0 +1,161 @@
+"""Table adapters around the scan kernels.
+
+Port of ``repro.kernels.ops`` for plain tables: ``scan_table`` /
+``scan_table_hybrid`` (K2) and ``scan_table_batched`` (K1) adapt the
+engine's Table layout -- columns stacked in one (n_pages, page_size,
+n_attrs) array -- to the kernels' column-plane interface.  The planes
+are strided views of ``table.data``; nothing is copied.  The launch's
+tile is ``batched_filter_agg.tile_pages`` unless ``block_pages`` is
+given; results do not depend on it.
+
+The masked (coverage-bitmap, K3) and sharded (K4) adapters are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import batched_filter_agg as _bfa
+from repro_torch.kernels import filter_agg as _fa
+
+I32_MIN = _fa.I32_MIN
+I32_MAX = _fa.I32_MAX
+
+
+def _single_bounds(table, attrs, los, his):
+    """Predicate planes + widened bounds for a single-query scan."""
+    pred0 = table.data[:, :, attrs[0]]
+    lo0, hi0 = los[0], his[0]
+    if len(attrs) == 2:
+        pred1 = table.data[:, :, attrs[1]]
+        lo1, hi1 = los[1], his[1]
+    else:
+        pred1 = pred0
+        lo1, hi1 = I32_MIN, I32_MAX
+    return pred0, pred1, lo0, hi0, lo1, hi1
+
+
+def _batch_bounds(data, attrs, los, his):
+    """Split per-query (B, len(attrs)) bounds into the kernels' two
+    predicate-plane/bounds pairs (1-attr queries widen the second)."""
+    los = torch.as_tensor(los, dtype=torch.int32, device=data.device)
+    his = torch.as_tensor(his, dtype=torch.int32, device=data.device)
+    n_queries = los.shape[0]
+    pred0 = data[..., attrs[0]]
+    los0, his0 = los[:, 0].contiguous(), his[:, 0].contiguous()
+    if len(attrs) == 2:
+        pred1 = data[..., attrs[1]]
+        los1, his1 = los[:, 1].contiguous(), his[:, 1].contiguous()
+    else:
+        pred1 = pred0
+        los1 = torch.full((n_queries,), I32_MIN, dtype=torch.int32,
+                          device=data.device)
+        his1 = torch.full((n_queries,), I32_MAX, dtype=torch.int32,
+                          device=data.device)
+    return pred0, pred1, los0, his0, los1, his1
+
+
+def _check_attrs(attrs):
+    if len(attrs) not in (1, 2):
+        raise ValueError(
+            f"kernel scans support 1 or 2 predicate attributes, "
+            f"got {attrs!r}"
+        )
+
+
+def scan_table(table, attrs, los, his, ts, agg_attr, block_pages=None):
+    """Full-table filter+aggregate of one query via K2."""
+    _check_attrs(attrs)
+    pred0, pred1, lo0, hi0, lo1, hi1 = _single_bounds(table, attrs, los, his)
+    return _fa.filter_agg(
+        pred0,
+        pred1,
+        table.data[:, :, agg_attr],
+        table.begin_ts,
+        table.end_ts,
+        lo0,
+        hi0,
+        lo1,
+        hi1,
+        ts,
+        block_pages=block_pages,
+    )
+
+
+def scan_table_hybrid(
+    table, attrs, los, his, ts, agg_attr, start_page, block_pages=None
+):
+    """The hybrid scan's table-scan suffix via K2: pages >= start_page
+    only; tiles wholly inside the indexed prefix load nothing."""
+    _check_attrs(attrs)
+    pred0, pred1, lo0, hi0, lo1, hi1 = _single_bounds(table, attrs, los, his)
+    return _fa.filter_agg(
+        pred0,
+        pred1,
+        table.data[:, :, agg_attr],
+        table.begin_ts,
+        table.end_ts,
+        lo0,
+        hi0,
+        lo1,
+        hi1,
+        ts,
+        start_page=int(start_page),
+        block_pages=block_pages,
+    )
+
+
+def scan_table_batched(
+    table, attrs, los, his, tss, agg_attr, start_pages=None, block_pages=None
+):
+    """Batched multi-query filter+aggregate via K1.
+
+    All queries share the table, the constrained ``attrs`` (1 or 2
+    columns) and ``agg_attr``; ``los``/``his`` are (n_queries,
+    len(attrs)) per-query inclusive bounds, ``tss`` (n_queries,)
+    snapshot timestamps, ``start_pages`` (n_queries,) hybrid-scan
+    stitch points (None = full scans).  Returns (sums, counts), each
+    (n_queries,) int32.
+    """
+    _check_attrs(attrs)
+    dev = table.data.device
+    pred0, pred1, los0, his0, los1, his1 = _batch_bounds(
+        table.data, attrs, los, his
+    )
+    n_queries = los0.shape[0]
+    if start_pages is None:
+        start_pages = torch.zeros((n_queries,), dtype=torch.int32,
+                                  device=dev)
+    return _bfa.batched_filter_agg(
+        pred0,
+        pred1,
+        table.data[..., agg_attr],
+        table.begin_ts,
+        table.end_ts,
+        los0,
+        his0,
+        los1,
+        his1,
+        torch.as_tensor(tss, dtype=torch.int32, device=dev),
+        torch.as_tensor(start_pages, dtype=torch.int32, device=dev),
+        block_pages=block_pages,
+    )
+
+
+def _not_ported(name, kernel, slice_name):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(
+            f"{name} needs kernel {kernel}, which lands with the "
+            f"{slice_name} slice of the port"
+        )
+
+    fn.__name__ = name
+    return fn
+
+
+scan_table_batched_masked = _not_ported(
+    "scan_table_batched_masked", "K3", "coverage-bitmap")
+scan_shards_batched = _not_ported("scan_shards_batched", "K4", "sharded")
+scan_shards_batched_masked = _not_ported(
+    "scan_shards_batched_masked", "K3", "coverage-bitmap")
