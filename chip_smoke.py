@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA H100.
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown,
+    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
+                                     # one burst of phases 3 and 5,
                                      # tables in build/profile/
 
 Phases, each asserted (any failure exits non-zero):
 
 1. Device: the card's name and power limit; build the CUDA kernels
-   (K1, K2) from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a.
+   (K1, K2, K3) from ``src/repro_torch/kernels/csrc`` with nvcc for
+   sm_90a.
 2. Kernels against their plain PyTorch versions on the card at the
    paper's table size (58,594 pages x 256 rows, columns read in place
    out of a 21-attribute table, MVCC gaps, values that wrap int32),
@@ -23,6 +25,24 @@ Phases, each asserted (any failure exits non-zero):
    (nor does the reference's): after the counted run, K2's adapters
    (``kernels.ops.scan_table`` / ``scan_table_hybrid``) are held to the
    same numpy scan and to K1 on the final table.
+4. K3 (the masked scan) against its plain version at phase 2's size,
+   B in {1, 8, 16, 32}, under an empty, a prefix, a scattered and a full
+   coverage bitmap, plus one stacked S = 4 launch with ragged real page
+   counts and 14,645 pages per shard (not a multiple of 32): bit-equal;
+   a prefix of length L also equals K1 with start_pages = L, and the
+   full bitmap returns zeros.  Timed on the scattered bitmap at B = 8.
+5. The masked main path at the paper's 10M rows: a clustered table
+   (attribute 1 is the row id, as in the reference's
+   ``benchmarks/crack_on_scan.py``) in two databases from one seed, with
+   ``crack_on_scan`` on.  Phased hot windows (width 512 on attribute 1)
+   in bursts of 16 scans, one decide / apply tuning cycle per burst
+   (hot-range page lists); the K3 twin runs ``execute_batch(
+   use_kernel=True)``, the plain twin the plain path.  Every ExecStats
+   field but wall_s and tier, the clock, the quanta and the coverage
+   bits agree; at least one burst plans ``hybrid_masked`` with a bitmap
+   that is not a prefix; K3's launches equal the masked kernel groups;
+   crack adoption charged populate units; a numpy scan of the final
+   table equals the K3 twin's answers.
 
 Prints one JSON line per measurement, then the card line, the kernels
 line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
@@ -51,6 +71,13 @@ PAGE_SIZE = 256
 N_BURSTS = 10
 PAGES_PER_CYCLE = 2048  # ~half of the 39,062 full pages over the run
 BURST_LOW_S, BURST_MOD_S = 8, 8
+# Phase 5: 16-scan bursts of the shifting hot-range workload; 64 pages
+# per cycle plus crack adoption cover ~2,000 of the 39,062 full pages,
+# so the index is still building at the end.
+N_MASKED_BURSTS = 12
+MASKED_BURST = 16
+MASKED_PHASE_LEN = 48  # scans per hot window (3 bursts)
+MASKED_PAGES_PER_CYCLE = 64
 
 
 def emit(obj) -> None:
@@ -102,8 +129,11 @@ def scan_bound(n_pages, page_size, n_planes, start_pages):
     return nbytes, max(t_bytes, t_ops), by
 
 
-def phase_kernels(torch, bfa, fa, dev):
-    """Phase 2: K1/K2 against their plain versions at full size."""
+def kernel_table(torch, dev):
+    """Phases 2 and 4: the paper's table size (58,594 pages x 256 rows
+    x 21 attributes) with values that wrap int32 sums, MVCC gaps and an
+    unoccupied tail; returns (data, begin_ts, end_ts) on ``dev`` and
+    the generator, whose stream phase 2 continues for its queries."""
     import numpy as np
 
     n_pages, psz, n_attrs = 58_594, PAGE_SIZE, 21
@@ -118,6 +148,16 @@ def phase_kernels(torch, bfa, fa, dev):
         rng.integers(50, 200, size=(n_pages, psz)), 2**31 - 1,
     ).astype(np.int32)).to(dev)
     begin.view(-1)[-psz * 100:] = 2**31 - 1  # unoccupied headroom
+    return data, begin, end, rng
+
+
+def phase_kernels(torch, bfa, fa, tab):
+    """Phase 2: K1/K2 against their plain versions at full size."""
+    import numpy as np
+
+    data, begin, end, rng = tab
+    dev = data.device
+    n_pages, psz, _ = data.shape
     planes = (data[..., 3], data[..., 1], data[..., 2], begin, end)
     results = {}
     for B in (1, 8, 32):
@@ -168,9 +208,133 @@ def phase_kernels(torch, bfa, fa, dev):
                        max_abs_err=err2, equal=True)
             emit(row)
             results[("K2", 1)] = row
-    del data, begin, end, planes
-    torch.cuda.empty_cache()
     return results
+
+
+def pack_words(torch, built, dev):
+    """(S, W) int32 packed little-endian coverage words of a (S,
+    n_pages) bool bitmap (bit p & 31 of word p >> 5 is page p)."""
+    import numpy as np
+
+    S, n = built.shape
+    W = -(-n // 32)
+    bits = np.pad(built, ((0, 0), (0, W * 32 - n))).astype(np.uint32)
+    words = (bits.reshape(S, W, 32) << np.arange(32, dtype=np.uint32)).sum(
+        axis=2, dtype=np.uint32)
+    return torch.from_numpy(words.view(np.int32)).to(dev)
+
+
+def masked_bound(n_uncovered, page_size, n_queries, n_words):
+    """(bytes, bound_ms, bound_by) of K3: the five planes of the
+    uncovered real pages read once, the coverage words and per-query
+    operands read once, outputs written once; every query does its
+    work on every uncovered row."""
+    rows = n_uncovered * page_size
+    nbytes = rows * 4 * 5 + n_words * 4 + n_queries * 5 * 4 \
+        + n_queries * 2 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = rows * n_queries * OPS_PER_ROW_QUERY / INT32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes, max(t_bytes, t_ops), by
+
+
+def phase_masked_kernel(torch, bfa, tab):
+    """Phase 4: K3 against its plain version (and K1 on prefixes) at
+    full size."""
+    import numpy as np
+
+    from repro_torch.core.index import PageCoverage
+
+    data, begin, end, _ = tab
+    dev = data.device
+    n_pages, psz, _ = data.shape
+    rng = np.random.default_rng(14)
+    planes = (data[..., 3], data[..., 1], data[..., 2], begin, end)
+    planes3 = tuple(x[None] for x in planes)
+    local = torch.tensor([n_pages], dtype=torch.int32, device=dev)
+    prefix = n_pages // 3
+    covers = {}
+    for name, pages in (("empty", []), ("prefix", range(prefix)),
+                        ("scattered", np.flatnonzero(
+                            rng.random(n_pages) < 0.5)),
+                        ("full", range(n_pages))):
+        cov = PageCoverage(n_pages, psz, dev)
+        cov.set_pages(list(pages))
+        covers[name] = (cov.packed_words(1, n_pages), cov.count())
+    errs, timed = [], None
+    for B in (1, 8, 16, 32):  # 16: the masked path's burst (phase 5)
+        lo0 = rng.integers(-(2**31), 2**30, size=B)
+        q = [lo0, lo0 + 2**30, np.full(B, -(2**31)), np.full(B, 2**31 - 1),
+             rng.integers(0, 200, size=B)]
+        qt = [torch.tensor(x.astype(np.int32), device=dev) for x in q]
+        for name, (words, n_cov) in covers.items():
+            before = bfa.masked_launches
+            ks, kc = bfa.sharded_batched_filter_agg_masked(
+                *planes3, *qt, words, local)
+            torch.cuda.synchronize()
+            assert bfa.masked_launches == before + 1
+            ps, pc = bfa.sharded_batched_filter_agg_masked_plain(
+                *planes3, *qt, words, local)
+            err = int(max((ks.long() - ps.long()).abs().max(),
+                          (kc.long() - pc.long()).abs().max()))
+            assert torch.equal(ks, ps) and torch.equal(kc, pc), (B, name, err)
+            errs.append(err)
+            if name == "prefix":
+                starts = torch.full((B,), prefix, dtype=torch.int32,
+                                    device=dev)
+                s1, c1 = bfa.batched_filter_agg(*planes, *qt, starts)
+                assert torch.equal(ks, s1) and torch.equal(kc, c1), B
+            if name == "full":
+                assert not kc.any() and not ks.any(), B
+            row = dict(phase="masked_kernel", kernel="K3", S=1, B=B,
+                       cover=name, covered_pages=n_cov, equal=True,
+                       max_abs_err=err)
+            if B == 8 and name in ("scattered", "full"):
+                n0 = bfa.masked_launches
+                row["kernel_ms"] = cuda_ms(
+                    lambda: bfa.sharded_batched_filter_agg_masked(
+                        *planes3, *qt, words, local))
+                row["plain_ms"] = cuda_ms(
+                    lambda: bfa.sharded_batched_filter_agg_masked_plain(
+                        *planes3, *qt, words, local), n=5, warm=1)
+                nbytes, bound, by = masked_bound(n_pages - n_cov, psz, B,
+                                                 words.numel())
+                row.update(bytes_moved=nbytes, bound_ms=bound, bound_by=by,
+                           launches=bfa.masked_launches - n0)
+                if name == "scattered":
+                    timed = row
+            emit(row)
+    # Stacked shards: S = 4 of n_pages // 4 - 3 pages (14,645: not a
+    # multiple of 32), ragged real page counts, a scattered bitmap per
+    # shard.
+    S = 4
+    n_s = n_pages // 4 - 3
+    d4 = data[: S * n_s].view(S, n_s, psz, -1)
+    stacked = (d4[..., 3], d4[..., 1], d4[..., 2],
+               begin[: S * n_s].view(S, n_s, psz),
+               end[: S * n_s].view(S, n_s, psz))
+    words = pack_words(torch, rng.random((S, n_s)) < 0.4, dev)
+    local4 = torch.tensor([n_s, n_s - n_s // 20, n_s - n_s // 9,
+                           n_s * 5 // 8], dtype=torch.int32, device=dev)
+    qt = [torch.tensor(x.astype(np.int32), device=dev) for x in (
+        np.full(8, -(2**30)), np.full(8, 2**30), np.full(8, -(2**31)),
+        np.full(8, 2**31 - 1), rng.integers(0, 200, size=8))]
+    before = bfa.masked_launches
+    ks, kc = bfa.sharded_batched_filter_agg_masked(*stacked, *qt, words,
+                                                   local4)
+    torch.cuda.synchronize()
+    assert bfa.masked_launches == before + 1
+    ps, pc = bfa.sharded_batched_filter_agg_masked_plain(*stacked, *qt,
+                                                         words, local4)
+    err = int(max((ks.long() - ps.long()).abs().max(),
+                  (kc.long() - pc.long()).abs().max()))
+    assert torch.equal(ks, ps) and torch.equal(kc, pc), err
+    errs.append(err)
+    emit(dict(phase="masked_kernel", kernel="K3", S=S, B=8,
+              pages_per_shard=n_s, local_pages=local4.tolist(),
+              cover="scattered", equal=True, max_abs_err=err))
+    timed["max_abs_err"] = max(errs)
+    return timed
 
 
 def numpy_scan(table, q, ts):
@@ -313,8 +477,180 @@ def phase_main_path(torch, bfa, fa, dev, profile):
                    f"{PAGE_SIZE}, {src.n_pages} pages: the paper's size; "
                    f"depth {N_BURSTS} bursts"))
     if profile:
-        profile_bursts(torch, dbk, dbp, gen)
+        profile_bursts(torch, dbk, dbp, "main", lambda: [
+            gen.low_s(attr=3) for _ in range(BURST_LOW_S)] + [
+            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)])
     return k1_launches, k2_launches
+
+
+def make_clustered_table(n_rows, page_size, n_attrs=21, headroom=1.5,
+                         seed=11, device=None):
+    """The TUNER 'narrow' table with attribute 1 as the clustered key
+    (ascending row id, so page p holds values (p * page_size, (p + 1) *
+    page_size]): zone maps prune perfectly and a hot value window is a
+    hot page range.  A copy of the reference's ``benchmarks/
+    crack_on_scan.py:make_clustered_db`` at any width and headroom."""
+    import numpy as np
+
+    from repro_torch.core.table import load_table
+
+    rng = np.random.default_rng(seed)
+    rowid = np.arange(1, n_rows + 1, dtype=np.int32)[:, None]
+    vals = np.concatenate(
+        [rowid, rowid,
+         rng.integers(1, 1_000_000, size=(n_rows, n_attrs - 2),
+                      dtype=np.int32)], axis=1)
+    n_pages = int(np.ceil(n_rows / page_size * headroom))
+    return load_table(vals, page_size=page_size, n_pages=n_pages,
+                      device=device)
+
+
+def make_shifting_workload(n_rows, total, phase_len, width=512, seed=13):
+    """Each phase hammers one value segment of attribute 1; segments
+    are visited in a fixed shuffled order (a copy of the reference's
+    ``benchmarks/crack_on_scan.py:make_shifting_workload``)."""
+    import numpy as np
+
+    from repro_torch.api import Query
+
+    rng = np.random.default_rng(seed)
+    phases = max(total // phase_len, 1)
+    order = rng.permutation(phases)
+    seg_span = n_rows // phases
+    items = []
+    for i in range(total):
+        ph = i // phase_len
+        seg_lo = 1 + int(order[ph % phases]) * seg_span
+        hi_bound = max(seg_lo + seg_span - width - 1, seg_lo + 1)
+        lo = int(rng.integers(seg_lo, hi_bound))
+        items.append(Query(kind="scan", table="narrow", attrs=(1,),
+                           los=(lo,), his=(lo + width,), agg_attr=2,
+                           template=f"hot{ph}"))
+    return items
+
+
+def phase_masked_path(torch, bfa, fa, dev, profile):
+    """Phase 5: the masked main path (coverage bitmaps, crack-on-scan,
+    hot-range quanta) at 10M rows on the card."""
+    import numpy as np
+
+    from repro_torch.api import Database, PredictiveTuner, TunerConfig
+    from repro_torch.core import build_service
+    from repro_torch.core.table import Table
+
+    t0 = time.perf_counter()
+    src = make_clustered_table(N_ROWS, PAGE_SIZE, device=dev)
+    twin = Table(src.data.clone(), src.begin_ts.clone(), src.end_ts.clone(),
+                 src.n_rows)
+    torch.cuda.synchronize()
+    emit(dict(phase="load_clustered", rows=N_ROWS, pages=src.n_pages,
+              page_size=PAGE_SIZE, attrs=src.n_attrs,
+              seconds=time.perf_counter() - t0))
+    dbk, dbp = Database({"narrow": src}), Database({"narrow": twin})
+    cfg = dict(storage_budget_bytes=200e6,
+               pages_per_cycle=MASKED_PAGES_PER_CYCLE,
+               max_build_pages_per_cycle=MASKED_PAGES_PER_CYCLE,
+               candidate_min_count=2)
+    tuners = []
+    for db in (dbk, dbp):
+        db.crack_on_scan = True
+        tuners.append(PredictiveTuner(db, TunerConfig(**cfg)))
+    wl = make_shifting_workload(N_ROWS, N_MASKED_BURSTS * MASKED_BURST,
+                                MASKED_PHASE_LEN)
+    fields = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
+              "rows_modified", "populate_units", "shard_pages")
+    bfa.launches = bfa.masked_launches = fa.launches = 0
+    masked_groups, kernel_groups, non_prefix, populate = 0, 0, 0, 0.0
+    tk, tp = [], []
+    for burst in range(N_MASKED_BURSTS):
+        scans = wl[burst * MASKED_BURST:(burst + 1) * MASKED_BURST]
+        groups = {}
+        for q in scans:
+            plan = dbk.planner.plan_scan(q)
+            groups[(tuple(q.attrs), q.agg_attr) + plan.group_key] = plan
+        masked = [p for p in groups.values() if p.path == "hybrid_masked"]
+        masked_groups += len(masked)
+        kernel_groups += sum(p.path in ("table", "hybrid")
+                             for p in groups.values())
+        non_prefix += any(not p.index.coverage.is_prefix() for p in masked)
+        order = ((dbk, True), (dbp, False))
+        if burst % 2:
+            order = order[::-1]
+        for db, use_kernel in order:
+            t1 = time.perf_counter()
+            out = db.execute_batch(scans, use_kernel=use_kernel)
+            torch.cuda.synchronize()
+            (tk if use_kernel else tp).append(time.perf_counter() - t1)
+            if use_kernel:
+                sk = out
+            else:
+                sp = out
+        for i, (a, b) in enumerate(zip(sk, sp)):
+            ka = tuple(getattr(a, f) for f in fields)
+            kb = tuple(getattr(b, f) for f in fields)
+            assert ka == kb, (burst, i, ka, kb)
+            assert a.tier == "kernel", (burst, i, a.tier)
+        populate += sum(s.populate_units for s in sk)
+        assert dbk.clock_ms == dbp.clock_ms
+        pk, pp = tuners[0].decide(), tuners[1].decide()
+        qk = [(q.index_name, q.pages, q.page_list, q.utility)
+              for q in pk.quanta]
+        assert qk == [(q.index_name, q.pages, q.page_list, q.utility)
+                      for q in pp.quanta], burst
+        wk = sum(build_service.apply_quantum(dbk, q) for q in pk.quanta)
+        wp = sum(build_service.apply_quantum(dbp, q) for q in pp.quanta)
+        assert wk == wp and sorted(dbk.indexes) == sorted(dbp.indexes)
+        for name, b in dbk.indexes.items():
+            assert np.array_equal(b.coverage.built,
+                                  dbp.indexes[name].coverage.built)
+        emit(dict(phase="masked_burst", burst=burst, kernel_s=tk[-1],
+                  plain_s=tp[-1], paths=sorted(p.path
+                                               for p in groups.values()),
+                  populate_units=sum(s.populate_units for s in sk),
+                  page_list_pages=sum(len(q.page_list) for q in pk.quanta),
+                  build_work=wk,
+                  covered={n: b.coverage.count()
+                           for n, b in dbk.indexes.items()}))
+    # The masked path's counts, read before the checks below.
+    k3_launches, k1_launches = bfa.masked_launches, bfa.launches
+    assert k3_launches == masked_groups > 0, (k3_launches, masked_groups)
+    assert k1_launches == kernel_groups, (k1_launches, kernel_groups)
+    assert fa.launches == 0
+    assert non_prefix > 0, "no burst planned a bitmap that is not a prefix"
+    assert populate > 0, "crack adoption charged no populate units"
+    bi = dbk.indexes["narrow:1"]
+    assert bi.building, "the index finished building: raise the depth cut"
+    table = dbk.tables["narrow"]
+    checks = wl[-4:] + wl[:2]
+    masked_checks = 0
+    for q in checks:
+        ts = dbk.clock_ms_i32()
+        plan = dbk.planner.plan_scan(q)
+        got = dbk.execute_batch([q], use_kernel=True)[0]
+        assert (got.agg_sum, got.count) == numpy_scan(table, q, ts), q
+        masked_checks += plan.path == "hybrid_masked"
+    assert masked_checks > 0
+    emit(dict(phase="masked_path", bursts=N_MASKED_BURSTS,
+              scans_per_burst=MASKED_BURST,
+              kernel_median_burst_ms=statistics.median(tk) * 1e3,
+              plain_median_burst_ms=statistics.median(tp) * 1e3,
+              kernel_s=sum(tk), plain_s=sum(tp), k3_launches=k3_launches,
+              masked_groups=masked_groups, k1_launches=k1_launches,
+              non_prefix_bursts=non_prefix, populate_units=populate,
+              final_covered_pages=bi.coverage.count(),
+              full_pages=N_ROWS // PAGE_SIZE, numpy_checks=len(checks),
+              numpy_checks_masked=masked_checks))
+    emit(dict(phase="scale_masked",
+              reduced=[f"depth: {N_MASKED_BURSTS} bursts of {MASKED_BURST} "
+                       f"scans (the reference benchmark runs 240 scans)"],
+              note=f"{N_ROWS} rows x {src.n_attrs} attrs, page_size "
+                   f"{PAGE_SIZE}, {src.n_pages} pages: the paper's size"))
+    if profile:  # the workload's next burst, after the counted run
+        extra = make_shifting_workload(
+            N_ROWS, (N_MASKED_BURSTS + 1) * MASKED_BURST,
+            MASKED_PHASE_LEN)[-MASKED_BURST:]
+        profile_bursts(torch, dbk, dbp, "masked", lambda: extra)
+    return k3_launches
 
 
 def device_busy_us(prof):
@@ -335,8 +671,9 @@ def device_busy_us(prof):
     return busy
 
 
-def profile_bursts(torch, dbk, dbp, gen):
-    """Device time by kernel name for one burst of each twin."""
+def profile_bursts(torch, dbk, dbp, tag, make_scans):
+    """Device time by kernel name for one burst of each twin (each
+    twin's scans from one call of ``make_scans``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -344,8 +681,7 @@ def profile_bursts(torch, dbk, dbp, gen):
     out.mkdir(parents=True, exist_ok=True)
     for name, db, use_kernel in (("kernel", dbk, True),
                                  ("plain", dbp, False)):
-        scans = [gen.low_s(attr=3) for _ in range(BURST_LOW_S)] + [
-            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)]
+        scans = make_scans()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -361,10 +697,10 @@ def profile_bursts(torch, dbk, dbp, gen):
                    and not e.key.startswith("aten::")
                    and not getattr(e, "is_user_annotation", False)]
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-        (out / f"profile_{name}.txt").write_text(
+        (out / f"profile_{tag}_{name}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=40))
-        emit(dict(phase="profile", twin=name, wall_ms=wall_ms,
+        emit(dict(phase="profile", path=tag, twin=name, wall_ms=wall_ms,
                   device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
                   kernel_ms_sum=sum(e.self_device_time_total
                                     for e in kernels) / 1e3,
@@ -400,9 +736,16 @@ def main(argv) -> int:
     emit(dict(phase="device", card=card, name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda))
 
-    kr = phase_kernels(torch, bfa, fa, dev)
+    tab = kernel_table(torch, dev)
+    kr = phase_kernels(torch, bfa, fa, tab)
+    k3 = phase_masked_kernel(torch, bfa, tab)
+    del tab
+    torch.cuda.empty_cache()
     k1_launches, k2_launches = phase_main_path(torch, bfa, fa, dev,
                                                "--profile" in argv)
+    torch.cuda.empty_cache()
+    k3_launches = phase_masked_path(torch, bfa, fa, dev,
+                                    "--profile" in argv)
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
@@ -421,6 +764,13 @@ def main(argv) -> int:
              launches=k2_launches, max_abs_err=k2["max_abs_err"],
              ms=k2["kernel_ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"],
+             library_ms=None),
+        dict(name="K3 sharded_batched_filter_agg_masked", route="cuda",
+             source="src/repro_torch/kernels/csrc/filter_agg.cu",
+             replaces="src/repro/kernels/batched_filter_agg.py:483",
+             launches=k3_launches, max_abs_err=k3["max_abs_err"],
+             ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
+             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
              library_ms=None),
     ]
     print(card, flush=True)

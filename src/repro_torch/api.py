@@ -12,16 +12,19 @@ from repro_torch.bench_db.queries import QueryGen
 from repro_torch.bench_db.schema import TunerDB, make_tuner_db
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database, ExecStats, Query
+from repro_torch.core.index import PageCoverage, eligible_global_pages
 from repro_torch.core.tuner import PredictiveTuner, TunerConfig
 
 __all__ = [
     "Database",
     "ExecStats",
     "IndexDescriptor",
+    "PageCoverage",
     "PredictiveTuner",
     "Query",
     "QueryGen",
     "TunerConfig",
     "TunerDB",
+    "eligible_global_pages",
     "make_tuner_db",
 ]

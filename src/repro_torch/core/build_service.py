@@ -18,12 +18,17 @@ from typing import List
 @dataclass(frozen=True)
 class BuildQuantum:
     """One interleavable slice of index-build work (the reference's
-    shard-targeted and page-list quanta come with their slices)."""
+    shard-targeted quanta come with the sharded slice)."""
 
     index_name: str
     pages: int
     # Forecast utility of the owning index at decide time.
     utility: float = 0.0
+    # Explicit global page ids for bitmap-mode (coverage) indexes:
+    # hot-range-first scheduling.  Empty = build the lowest uncovered
+    # pages (coverage) or advance the prefix (legacy).  ``pages`` is
+    # the slice budget either way (== len(page_list) when present).
+    page_list: tuple = ()
 
 
 @dataclass
@@ -42,4 +47,5 @@ def apply_quantum(db, quantum: BuildQuantum) -> float:
     bi = db.indexes.get(quantum.index_name)
     if bi is None or not bi.building or bi.scheme not in ("vap", "full"):
         return 0.0
-    return db.vap_build_step(bi, quantum.pages)
+    return db.vap_build_step(bi, quantum.pages,
+                             page_list=quantum.page_list or None)

@@ -3,8 +3,10 @@
 ``from_reference`` takes the fields of the reference's ``Table`` and
 ``AdHocIndex`` records as numpy arrays (``np.asarray(x)`` on the JAX
 side, done by the caller, so this module imports nothing of JAX) and
-returns the port's records on ``device``.  The tests use it to start
-both packages from one state.
+returns the port's records on ``device``; ``coverage_from_reference``
+does the same for a ``PageCoverage`` bitmap (a host numpy record on
+both sides).  The tests use them to start both packages from one
+state.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.index import AdHocIndex
+from repro_torch.core.index import AdHocIndex, PageCoverage
 from repro_torch.core.table import Table, resolve_device
 
 
@@ -39,6 +41,17 @@ def index_from_reference(fields, device=None) -> AdHocIndex:
     return AdHocIndex(_tensor(key_hi, dev), _tensor(key_lo, dev),
                       _tensor(rids, dev), int(np.asarray(n_entries)),
                       int(np.asarray(built_pages)))
+
+
+def coverage_from_reference(fields, device=None) -> PageCoverage:
+    """``fields``: (built, max_entry_page, page_size) of a reference
+    ``PageCoverage`` -- its bits, its highest entry page and its page
+    size."""
+    built, max_entry_page, page_size = fields
+    cov = PageCoverage(len(built), int(page_size), resolve_device(device))
+    cov.built[:] = np.asarray(built, bool)
+    cov.max_entry_page = int(max_entry_page)
+    return cov
 
 
 def from_reference(tables: Optional[Dict[str, tuple]] = None,

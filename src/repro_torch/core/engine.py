@@ -10,12 +10,16 @@ bounds, and owns the dispatch strategy:
   ``use_kernel`` the table scans and the table half of hybrid scans run
   on the hand-written multi-query CUDA kernel K1
   (``kernels.ops.scan_table_batched``); the hybrid path stitches K1's
-  per-query ``start_pages`` suffix to the index prefix.  Without it
-  they run the plain PyTorch batched forms.
+  per-query ``start_pages`` suffix to the index prefix.  The masked
+  (coverage-bitmap) path runs its uncovered-page table half on kernel
+  K3 (``kernels.ops.scan_table_batched_masked``, one shard) beside the
+  covered-page index half.  Without ``use_kernel`` they run the plain
+  PyTorch batched forms.
 
 Every dispatch records its execution tier in ``last_tier`` (vocabulary
-``TIERS``).  Sharded storage, meshes and the masked (coverage-bitmap)
-path are not ported yet and raise ``NotImplementedError``.
+``TIERS``): ``kernel`` for a kernel dispatch, ``single`` otherwise.
+Sharded storage, meshes, the per-shard stitch and VBP scans are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,16 +34,19 @@ from repro_torch.core.hybrid_scan import (
     batched_full_table_scan,
     batched_hybrid_index_prefix,
     batched_hybrid_scan,
+    batched_hybrid_scan_masked,
+    batched_masked_index_side,
     batched_pure_index_scan,
     full_table_scan,
     hybrid_scan,
+    hybrid_scan_masked,
     pure_index_scan,
 )
 from repro_torch.core.index import AdHocIndex
 from repro_torch.core.table import Table
 from repro_torch.kernels import ops as _kops
 
-_UNPORTED_PATHS = ("hybrid_masked", "hybrid_ps", "pure_vbp")
+_UNPORTED_PATHS = ("hybrid_ps", "pure_vbp")
 
 
 def _check(table, path: str) -> None:
@@ -77,6 +84,12 @@ class ScanEngine:
                 table, plan.index_state, plan.key_attrs, attrs, los, his,
                 ts, agg_attr,
             )
+        if path == "hybrid_masked":
+            cov = plan.pinned_coverage
+            return hybrid_scan_masked(
+                table, plan.index_state, plan.key_attrs, attrs, los, his,
+                ts, agg_attr, cov.mask[0], cov.prefix_len,
+            )
         return hybrid_scan(
             table, plan.index_state, plan.key_attrs, attrs, los, his, ts,
             agg_attr,
@@ -99,8 +112,11 @@ class ScanEngine:
         tss,
         agg_attr: int,
         use_kernel: bool = False,
+        coverage=None,
     ) -> BatchScanResult:
-        """One batched dispatch for a plan group."""
+        """One batched dispatch for a plan group.  ``coverage`` is the
+        plan-pinned ``CoverageView`` of the ``hybrid_masked`` path
+        (None for every other path)."""
         _check(table, path)
         # The kernel evaluates at most 2 predicate columns; wider
         # conjunctions take the plain batched forms.
@@ -124,6 +140,17 @@ class ScanEngine:
                 )
             return batched_hybrid_scan(
                 table, index_state, key_attrs, attrs, los, his, tss, agg_attr
+            )
+        if path == "hybrid_masked":
+            if kernel_ok:
+                self.last_tier = "kernel"
+                return self._kernel_hybrid_scan_masked(
+                    table, index_state, key_attrs, attrs, los, his, tss,
+                    agg_attr, coverage,
+                )
+            return batched_hybrid_scan_masked(
+                table, index_state, key_attrs, attrs, los, his, tss,
+                agg_attr, coverage.mask[0], coverage.prefix_len,
             )
         return batched_pure_index_scan(
             table, index_state, key_attrs, attrs, los, his, tss, agg_attr
@@ -168,6 +195,39 @@ class ScanEngine:
             add_i32(pre.agg_sum, tbl_sums),
             add_i32(pre.count, tbl_cnts),
             _pages_after(table, pre.start_page),
+            pre.entries_probed,
+            pre.start_page,
+        )
+
+    @staticmethod
+    def _kernel_hybrid_scan_masked(
+        table: Table,
+        index: AdHocIndex,
+        key_attrs,
+        attrs,
+        los,
+        his,
+        tss,
+        agg_attr: int,
+        cov,
+    ) -> BatchScanResult:
+        """Masked hybrid scans with the uncovered-page table half on K3:
+        the packed coverage words go to the kernel, whose tiles of
+        covered pages load nothing."""
+        pre = batched_masked_index_side(
+            table, index, key_attrs, attrs, los, his, tss, agg_attr,
+            cov.mask[0], cov.prefix_len,
+        )
+        tbl_sums, tbl_cnts = _kops.scan_table_batched_masked(
+            table, attrs, los, his, tss, agg_attr, cov.words
+        )
+        used = _used_pages(table)
+        pages = int((~cov.built_host[:used]).sum())
+        B = tbl_sums.shape[0]
+        return BatchScanResult(
+            add_i32(pre.agg_sum, tbl_sums),
+            add_i32(pre.count, tbl_cnts),
+            torch.full((B,), pages, dtype=torch.int32, device=table.device),
             pre.entries_probed,
             pre.start_page,
         )

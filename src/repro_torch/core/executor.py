@@ -9,9 +9,15 @@ the reference; only ``ExecStats.wall_s`` (a host clock around the
 dispatch, synchronised with the device when the table lives on CUDA)
 and ``tier`` differ by nature.
 
+Coverage-bitmap tuning is ported: with ``crack_on_scan`` or
+``index_decay`` set before an index is created, the VAP index carries
+a ``PageCoverage`` bitmap; scans then adopt pages they table-scanned
+(``_crack_adopt``), build quanta may name explicit page lists, and the
+tuner's decay pass clears cold pages.
+
 Not ported yet (they raise ``NotImplementedError``): joins (HIGH-S),
-sharded storage and ``reshard``, crack-on-scan, index decay,
-shard-aware tuning, fault injection and VBP indexes.
+sharded storage and ``reshard``, shard-aware tuning, fault injection
+and VBP indexes.
 """
 
 from __future__ import annotations
@@ -26,7 +32,13 @@ import torch
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.engine import ScanEngine
-from repro_torch.core.index import advance_build, make_index
+from repro_torch.core.index import (
+    advance_build,
+    build_page_list,
+    coverage_from_state,
+    eligible_global_pages,
+    make_index,
+)
 from repro_torch.core.layout import LayoutState, scan_width_factor
 from repro_torch.core.monitor import QueryRecord, WorkloadMonitor
 from repro_torch.core.planner import BuiltIndex, QueryPlanner, scan_cost
@@ -107,11 +119,18 @@ class Database:
         self.clock_ms: float = 0.0
         self.time_per_unit_ms = time_per_unit_ms
         self.update_cap = 512  # max rows materialised per UPDATE
+        # Coverage-bitmap tuning: ``crack_on_scan`` lets a scan adopt
+        # pages it just table-scanned into a matching building VAP
+        # index; ``index_decay`` lets the tuner drop cold built pages
+        # under the storage cap.  Both default off: then no index
+        # carries a PageCoverage and every scan keeps the legacy
+        # prefix paths.
+        self.crack_on_scan: bool = False
+        self.crack_pages_per_scan: int = 8
+        self.index_decay: bool = False
         # Options of the reference whose slices are not ported yet;
         # setting one makes the next statement raise.
         self.shard_aware_tuning: bool = False
-        self.crack_on_scan: bool = False
-        self.index_decay: bool = False
         self.fault_injector = None
         self._zone_maps: Dict[tuple, tuple] = {}
         self.planner = QueryPlanner(self)
@@ -122,14 +141,18 @@ class Database:
         return next(iter(self.tables.values())).device
 
     def _check_options(self) -> None:
-        for flag in ("shard_aware_tuning", "crack_on_scan", "index_decay"):
-            if getattr(self, flag):
-                raise NotImplementedError(f"{flag} is not ported yet")
+        if self.shard_aware_tuning:
+            raise NotImplementedError("shard_aware_tuning is not ported yet")
         if self.fault_injector is not None:
             raise NotImplementedError("fault injection is not ported yet")
 
     def reshard(self, num_shards: int) -> None:
         raise NotImplementedError("sharded storage is not ported yet")
+
+    def table_is_round_robin(self, name: str) -> bool:
+        """Does ``name``'s layout map global page ids round-robin onto
+        shards?  Always, for the plain tables ported so far."""
+        return isinstance(self.tables[name], Table)
 
     def _timed(self, fn, *args, **kwargs):
         """Run ``fn`` and return (result, wall seconds of finished
@@ -152,6 +175,7 @@ class Database:
             raise NotImplementedError(f"{scheme} indexes are not ported yet")
         bi = BuiltIndex(desc=desc, scheme=scheme, created_ms=self.clock_ms)
         bi.vap = make_index(t.capacity, t.device)
+        self.ensure_coverage(bi)
         self.indexes[desc.name] = bi
         return bi
 
@@ -163,6 +187,29 @@ class Database:
 
     def total_index_bytes(self) -> float:
         return sum(b.size_bytes() for b in self.indexes.values())
+
+    def ensure_coverage(self, bi: BuiltIndex) -> bool:
+        """Attach a built-page bitmap to a VAP index when coverage
+        tuning is on (``crack_on_scan`` / ``index_decay``), seeded from
+        the index's built prefix.  Once attached, every build goes
+        through ``vap_build_step``'s page lists: replaying
+        ``advance_build`` over covered pages would duplicate entries."""
+        if bi.coverage is not None:
+            return True
+        if (
+            bi.scheme != "vap"
+            or not (self.crack_on_scan or self.index_decay)
+            or not self.table_is_round_robin(bi.desc.table)
+        ):
+            return False
+        bi.coverage = coverage_from_state(bi.vap, self.tables[bi.desc.table])
+        return True
+
+    def coverage_pages_left(self, bi: BuiltIndex) -> int:
+        """Uncovered fully populated pages of a bitmap-mode index."""
+        t = self.tables[bi.desc.table]
+        eligible = eligible_global_pages(t)
+        return int((~bi.coverage.built[eligible]).sum())
 
     def zone_map(self, table: str, attr: int):
         """Per-page (min, max) of ``attr`` over the fully populated
@@ -249,13 +296,15 @@ class Database:
         agg_sum, count, pages, probed, r_start = vals
         if plan.path == "table":
             start_page, entries = 0, 0.0
-        elif plan.path == "hybrid":
+        elif plan.path in ("hybrid", "hybrid_masked"):
             start_page, entries = r_start, float(probed)
         else:  # pure index scan: no table pages touched
             start_page, entries = t.n_pages, float(probed)
         cost = scan_cost(
             layout, q.accessed_attrs, t.page_size, pages, entries, start_page
         )
+        populate = self._crack_adopt(q, plan, start_page)
+        cost += populate
         used = bi is not None
         if used:
             bi.last_used_ms = self.clock_ms
@@ -266,9 +315,63 @@ class Database:
             used_index=used,
             agg_sum=agg_sum,
             count=count,
-            populate_units=0.0,
+            populate_units=populate,
             tier=self.engine.last_tier or "",
         )
+
+    def _crack_adopt(self, q: Query, plan, start_page: int) -> float:
+        """Crack-on-scan: adopt up to ``crack_pages_per_scan`` of the
+        pages this scan just table-scanned into a matching building
+        bitmap-mode VAP index (``build_page_list`` + bit flips).  The
+        extraction and merge work is charged to the triggering query
+        and reported as ``populate_units``."""
+        if not self.crack_on_scan or plan.path not in (
+            "table", "hybrid", "hybrid_masked"
+        ):
+            return 0.0
+        bi = plan.index
+        if bi is None:
+            # Full table scans crack too: any building bitmap index
+            # whose leading key the predicate constrains may adopt.
+            for cand in self.indexes_on(q.table):
+                if (
+                    cand.scheme == "vap"
+                    and cand.building
+                    and cand.coverage is not None
+                    and cm.index_matches(cand.desc, q.table, q.attrs)
+                ):
+                    bi = cand
+                    break
+        if (
+            bi is None
+            or bi.scheme != "vap"
+            or not bi.building
+            or bi.coverage is None
+        ):
+            return 0.0
+        t = self.tables[q.table]
+        cov = bi.coverage
+        eligible = eligible_global_pages(t)
+        # Pages the scan visited: the table-scan region starts at the
+        # stitch point (0 for full scans; under the masked stitch every
+        # uncovered page lies at or past the covered prefix).
+        open_pages = eligible[(eligible >= start_page) & ~cov.built[eligible]]
+        take = open_pages[: self.crack_pages_per_scan]
+        if take.size == 0:
+            return 0.0
+        self._cover_pages(bi, t, take, eligible)
+        return float(take.size * t.page_size)
+
+    @staticmethod
+    def _cover_pages(bi: BuiltIndex, t, take, eligible) -> None:
+        """Index the pages ``take`` and set their coverage bits; the
+        index closes once every eligible page is covered."""
+        if take.size:
+            bi.vap = build_page_list(bi.vap, t, bi.desc.key_attrs, take)
+            bi.coverage.set_pages(take)
+        if bi.coverage.built[eligible].all():
+            bi.complete = True
+            bi.building = False
 
     # ------------------------------------------------------------------
     # Batched execution (read bursts)
@@ -344,6 +447,7 @@ class Database:
                     tss,
                     agg_attr,
                     use_kernel=use_kernel,
+                    coverage=plan.pinned_coverage,
                 )
                 tier = self.engine.last_tier or ""
                 # Drain point between this group's dispatch and the
@@ -369,7 +473,8 @@ class Database:
             ]
             t = self.tables[q.table]
             layout = self.layouts[q.table]
-            bi_q = plan_by_pos[pos].index
+            plan_q = plan_by_pos[pos]
+            bi_q = plan_q.index
             cost = scan_cost(
                 layout,
                 q.accessed_attrs,
@@ -378,6 +483,11 @@ class Database:
                 float(n_entries),
                 start_page,
             )
+            # Crack adoption replays per query, in order, as in the
+            # sequential loop; the results stay burst-consistent since
+            # every dispatch above ran against the pinned views.
+            populate = self._crack_adopt(q, plan_q, start_page)
+            cost += populate
             used = bi_q is not None
             if used:
                 bi_q.last_used_ms = self.clock_ms
@@ -388,7 +498,7 @@ class Database:
                 used_index=used,
                 agg_sum=agg_sum,
                 count=count,
-                populate_units=0.0,
+                populate_units=populate,
                 tier=tier,
             )
             self.clock_ms += stats.latency_ms
@@ -483,15 +593,44 @@ class Database:
     # ------------------------------------------------------------------
     # Tuner-side physical work, charged by the caller
     # ------------------------------------------------------------------
-    def vap_build_step(self, bi: BuiltIndex, pages: int) -> float:
+    def vap_build_step(self, bi: BuiltIndex, pages: int,
+                       page_list=None) -> float:
         """Advance a VAP/FULL index by one resumable build quantum of
-        ``pages`` pages (``index.advance_build``); returns work units."""
+        ``pages`` pages (``index.advance_build``); returns work units.
+        Bitmap-mode indexes (``bi.coverage`` attached) build through
+        ``_coverage_build_step``: an explicit ``page_list`` quantum
+        (hot-range-first), or the lowest uncovered pages."""
         t = self.tables[bi.desc.table]
+        if bi.coverage is not None:
+            return self._coverage_build_step(bi, t, pages, page_list)
         bi.vap, done = advance_build(bi.vap, t, bi.desc.key_attrs, pages)
         if bi.vap.built_pages >= t.n_rows // t.page_size:
             bi.complete = True
             bi.building = False
         return float(done * t.page_size)
+
+    def _coverage_build_step(self, bi: BuiltIndex, t, pages: int,
+                             page_list) -> float:
+        """Bitmap-mode build quantum.  Every entry goes through
+        ``build_page_list``, never ``advance_build`` (the bitmap is the
+        dedup authority).  A ``page_list`` is filtered against the live
+        bitmap at apply time, so replaying a stale quantum is a no-op;
+        with none the lowest uncovered pages build first, which is the
+        legacy page order."""
+        cov = bi.coverage
+        eligible = eligible_global_pages(t)
+        open_mask = ~cov.built[eligible]
+        if page_list is not None:
+            open_set = set(eligible[open_mask].tolist())
+            take = np.asarray(
+                [int(p) for p in page_list if int(p) in open_set][
+                    : int(pages)],
+                np.int64,
+            )
+        else:
+            take = eligible[open_mask][: int(pages)]
+        self._cover_pages(bi, t, take, eligible)
+        return float(take.size * t.page_size)
 
     def clock_ms_i32(self) -> int:
         """Snapshot timestamp of the next statement (int32 range)."""

@@ -9,11 +9,28 @@ database's device.  The multiplicative-seasonality equations:
     trend:     b_t = beta  * (l_t - l_{t-1}) + (1-beta)  * b_{t-1}
     season:    s_t = gamma * (y_t / (l_{t-1} + b_{t-1})) + (1-gamma) * s_{t-m}
 
-The operations and their order follow the reference one for one, so
-the float32 results agree with it (tests/test_torch_executor.py checks
-the values and the tuner decisions they drive).  A batched state
-carries a leading batch axis on every field; ``update_batch`` /
-``forecast_batch`` are the reference's vmapped forms.
+The operations and their order follow the reference one for one, and
+so does the rounding.  XLA on the CPU contracts one product of each
+update into a fused multiply-add (found by comparing every placement
+bit for bit against the reference, jitted and vmapped, at several
+alpha / beta / gamma):
+
+    level:     fma(alpha, y / s_{t-m}, (1-alpha) * prev)
+    trend:     fma(1-beta, b_{t-1}, beta * (l_t - l_{t-1}))
+    season:    fma(gamma, y / prev, (1-gamma) * s_{t-m})
+    forecast:  fma(h, b_t, l_t) * s
+
+``_fma`` computes each one as the float64 product of two float32
+values (exact: 48 bits of mantissa), plus the float32 addend in
+float64, rounded to float32.  That rounds twice, first to float64 and
+then to float32; it can differ from a true fused multiply-add only
+when the float64 sum lands exactly halfway between two float32
+values, which tests/test_torch_executor.py has not met: it holds the
+states and forecasts bit-equal to the reference.  ``1 - alpha`` is
+taken in float32, as in the reference, where alpha is a traced
+float32.  A batched state carries a leading batch axis on every
+field; ``update_batch`` / ``forecast_batch`` are the reference's
+vmapped forms.
 """
 
 from __future__ import annotations
@@ -53,12 +70,23 @@ def _take(season, pos):
                         ).squeeze(-1)
 
 
+def _fma(a, b, c):
+    """float32 ``a * b + c`` with the product unrounded (see the
+    module docstring)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _f32(x, device):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
 def update(state: HWState, y, alpha=0.5, beta=0.3, gamma=0.4) -> HWState:
     """Consume one observation ``y`` (scalar, or (n,) for a batched
     state).  The first observation bootstraps the level."""
+    dev = state.level.device
     m = state.season.shape[-1]
-    y = torch.as_tensor(y, dtype=torch.float32, device=state.level.device)
-    y = torch.clamp_min(y, EPS)
+    y = torch.clamp_min(_f32(y, dev), EPS)
+    a, b, g = (_f32(v, dev) for v in (alpha, beta, gamma))
     pos = state.t % m
     s_tm = _take(state.season, pos)
 
@@ -66,9 +94,9 @@ def update(state: HWState, y, alpha=0.5, beta=0.3, gamma=0.4) -> HWState:
     prev = state.level + state.trend
     prev = torch.clamp_min(prev, EPS)
 
-    l_new = alpha * (y / torch.clamp_min(s_tm, EPS)) + (1 - alpha) * prev
-    b_new = beta * (l_new - state.level) + (1 - beta) * state.trend
-    s_new = gamma * (y / prev) + (1 - gamma) * s_tm
+    l_new = _fma(a, y / torch.clamp_min(s_tm, EPS), (1 - a) * prev)
+    b_new = _fma(1 - b, state.trend, b * (l_new - state.level))
+    s_new = _fma(g, y / prev, (1 - g) * s_tm)
 
     level = torch.where(first, y, l_new)
     trend = torch.where(first, 0.0, b_new)
@@ -85,7 +113,7 @@ def forecast(state: HWState, h=1):
     m = state.season.shape[-1]
     pos = (state.t + int(h) - 1) % m
     s = _take(state.season, pos)
-    raw = (state.level + h * state.trend) * s
+    raw = _fma(_f32(int(h), s.device), state.trend, state.level) * s
     return torch.clamp_min(raw, 0.0)
 
 

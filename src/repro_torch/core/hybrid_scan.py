@@ -1,8 +1,8 @@
 """The value-agnostic hybrid scan operator (paper Section III).
 
-Port of the unmasked forms of ``repro.core.hybrid_scan``.  A hybrid
-scan is an index scan over the fully-indexed page prefix stitched to a
-table scan over the remainder:
+Port of ``repro.core.hybrid_scan`` on plain tables.  A hybrid scan is
+an index scan over the fully-indexed page prefix stitched to a table
+scan over the remainder:
 
 1. Range-scan the partial index; re-check the full predicate and MVCC
    visibility on the fetched rows (index keys may be stale after
@@ -12,6 +12,12 @@ table scan over the remainder:
 3. The table scan starts at start_page = max(rho_m, rho_i + 1).
 4. Index matches on pages >= start_page are dropped (the table scan
    finds them again).
+
+The masked forms (``*_masked``, coverage bitmaps) stitch by a
+built-page bitmap ``covered`` (n_pages,) bool instead: covered pages
+answer from the index, exactly the uncovered pages are table-scanned
+-- no rho, no dedup window -- and ``start_page`` reports the bitmap's
+leading built run ``prefix_len``.
 
 Index side: the reference evaluates the predicate over the whole table
 and gathers it at every entry's rid.  Here the sorted entry array is
@@ -192,13 +198,20 @@ def _hybrid_prefix(table, index, key_attrs, attrs, los, his, tss,
 def _table_suffix(table: Table, attrs, los, his, tss, agg_attr, start_pages):
     """Plain table side of B scans: (sums, counts, masks) over pages >=
     start_pages[q] (``masks`` is the list of per-query row masks)."""
-    page_ids = torch.arange(table.n_pages, device=table.device)[:, None]
+    page_ids = torch.arange(table.n_pages, device=table.device)
+    return _table_side(table, attrs, los, his, tss, agg_attr,
+                       page_ids[None, :] >= start_pages[:, None])
+
+
+def _table_side(table: Table, attrs, los, his, tss, agg_attr, page_ok):
+    """Plain table side of B scans over the pages ``page_ok`` (B,
+    n_pages) bool selects for each query: (sums, counts, masks)."""
     vals = table.data[:, :, agg_attr]
     sums, cnts, masks = [], [], []
     for q in range(los.shape[0]):
         mask = conj_predicate_mask(table, attrs, los[q], his[q])
         mask &= visible_mask(table, tss[q])
-        mask &= page_ids >= start_pages[q]
+        mask &= page_ok[q][:, None]
         sums.append(i32_sum(torch.where(mask, vals, 0)))
         cnts.append(i32_sum(mask))
         masks.append(mask)
@@ -360,3 +373,87 @@ def batched_pure_index_scan(table: Table, index: AdHocIndex,
         pr.entries_probed,
         torch.full((B,), table.n_pages, dtype=torch.int32, device=dev),
     )
+
+
+# ---------------------------------------------------------------------------
+# Masked (coverage-bitmap) stitch
+# ---------------------------------------------------------------------------
+
+def _masked_index_side(table, index, key_attrs, attrs, los, his, tss,
+                       agg_attr, covered, prefix_len):
+    """Index half of B masked scans: matches on covered pages only.
+    Returns (HybridPrefixResult, probe, keep)."""
+    pr = _probe(table, index, key_attrs, attrs, los, his, tss, agg_attr)
+    keep = pr.match & covered[pr.page]
+    s, c = _segment_sums(pr, keep)
+    B = los.shape[0]
+    start = torch.full((B,), int(prefix_len), dtype=torch.int32,
+                       device=table.device)
+    return HybridPrefixResult(s, c, pr.entries_probed, start), pr, keep
+
+
+def _masked_pages_scanned(table: Table, covered) -> int:
+    """Uncovered pages up to the append watermark."""
+    return int((~covered[: _used_pages(table)]).sum())
+
+
+def _masked_scan_core(table, index, key_attrs, attrs, los, his, tss,
+                      agg_attr, covered, prefix_len):
+    """Shared masked-stitch body for B queries: (BatchScanResult,
+    probe, keep, per-query table masks)."""
+    pre, pr, keep = _masked_index_side(table, index, key_attrs, attrs, los,
+                                       his, tss, agg_attr, covered,
+                                       prefix_len)
+    B = los.shape[0]
+    s, c, masks = _table_side(table, attrs, los, his, tss, agg_attr,
+                              (~covered)[None, :].expand(B, -1))
+    pages = torch.full((B,), _masked_pages_scanned(table, covered),
+                       dtype=torch.int32, device=table.device)
+    res = BatchScanResult(add_i32(pre.agg_sum, s), add_i32(pre.count, c),
+                          pages, pre.entries_probed, pre.start_page)
+    return res, pr, keep, masks
+
+
+def hybrid_scan_masked(table: Table, index: AdHocIndex, key_attrs: tuple,
+                       attrs: tuple, los, his, ts, agg_attr: int, covered,
+                       prefix_len) -> ScanResult:
+    """Bitmap-stitched hybrid scan: index over covered pages, table
+    scan over exactly the uncovered ones.  ``covered`` is (n_pages,)
+    bool, ``prefix_len`` the leading built run reported as
+    ``start_page``."""
+    los, his, tss = _single(table, attrs, los, his, ts)
+    res, pr, keep, masks = _masked_scan_core(
+        table, index, key_attrs, attrs, los, his, tss, agg_attr, covered,
+        prefix_len)
+    return ScanResult(res.agg_sum[0], res.count[0],
+                      _contrib(table, pr.rids, keep, masks[0]),
+                      res.pages_scanned[0], res.entries_probed[0],
+                      res.start_page[0])
+
+
+def batched_hybrid_scan_masked(table: Table, index: AdHocIndex,
+                               key_attrs: tuple, attrs: tuple, los, his,
+                               tss, agg_attr: int, covered,
+                               prefix_len) -> BatchScanResult:
+    """B bitmap-stitched hybrid scans (the coverage mask is shared:
+    it is index state, not query state); table side plain."""
+    dev = table.device
+    los, his = _bounds(los, len(attrs), dev), _bounds(his, len(attrs), dev)
+    tss = torch.as_tensor(tss, dtype=torch.int32, device=dev)
+    return _masked_scan_core(table, index, key_attrs, attrs, los, his, tss,
+                             agg_attr, covered, prefix_len)[0]
+
+
+def batched_masked_index_side(table: Table, index: AdHocIndex,
+                              key_attrs: tuple, attrs: tuple, los, his, tss,
+                              agg_attr: int, covered,
+                              prefix_len) -> HybridPrefixResult:
+    """Index side of B masked hybrid scans: the companion of the masked
+    table suffix on K3 (``ops.scan_table_batched_masked``).  Adding
+    K3's uncovered-page aggregates gives ``batched_hybrid_scan_masked``
+    bit for bit."""
+    dev = table.device
+    los, his = _bounds(los, len(attrs), dev), _bounds(his, len(attrs), dev)
+    tss = torch.as_tensor(tss, dtype=torch.int32, device=dev)
+    return _masked_index_side(table, index, key_attrs, attrs, los, his, tss,
+                              agg_attr, covered, prefix_len)[0]

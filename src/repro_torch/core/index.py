@@ -19,12 +19,24 @@ sorted once with ``stable=True`` -- the same permutation.
 
 ``n_entries`` and ``built_pages`` are host ints; the key and rid
 arrays live on the table's device.
+
+Coverage bitmaps (``PageCoverage``) generalise the built prefix to a
+built-page bitmap, as in the reference: crack-on-scan adoption,
+hot-range-first page lists and cold-page decay become bit flips plus
+``build_pages_at`` merges.  A set bit means the page is fully indexed;
+entries may exist for uncovered pages (decay clears bits without
+compacting), and masked scans drop those on the index side and scan
+every uncovered page.  A bitmap that is exactly the ``built_pages``
+prefix with no entries beyond it (``legacy_prefix_ok``) keeps the
+legacy ``start_page`` paths.  Only plain tables are ported; their
+global page ids are the local ones (one shard).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.table import INF_TS, Table
@@ -215,3 +227,220 @@ def index_range_bounds(index: AdHocIndex, lo_packed, hi_packed):
     start = torch.clamp(start, max=index.n_entries)
     stop = torch.maximum(torch.clamp(stop, max=index.n_entries), start)
     return start, stop
+
+
+# ---------------------------------------------------------------------------
+# Page-coverage bitmap (crack-on-scan / hot-range builds / decay)
+# ---------------------------------------------------------------------------
+
+COVERAGE_WORD_BITS = 32
+
+
+class PageCoverage:
+    """Host-managed built-page bitmap over global page ids.
+
+    Mutations (crack adoption, hot-range quanta, decay) are host-side
+    numpy bit flips between dispatches; each bumps ``version``.  The
+    device views (``global_mask``, ``stacked_mask``, ``packed_words``,
+    ``view``) are torch tensors on ``device``, memoised per version, so
+    a bitmap is uploaded once per mutation, not once per scan.
+    """
+
+    __slots__ = ("built", "version", "max_entry_page", "page_size",
+                 "device", "_cache")
+
+    def __init__(self, n_pages: int, page_size: int = 0, device="cpu"):
+        self.built = np.zeros(int(n_pages), bool)
+        self.version = 0
+        self.page_size = int(page_size)  # size accounting (decay cap)
+        self.device = torch.device(device)
+        # Highest page id entries were ever emitted for (-1: none).
+        # The legacy prefix routes are sound only when no entry lies
+        # beyond the prefix.
+        self.max_entry_page = -1
+        self._cache: dict = {}
+
+    @classmethod
+    def from_prefix(cls, n_pages: int, prefix: int, page_size: int = 0,
+                    device="cpu") -> "PageCoverage":
+        cov = cls(n_pages, page_size, device)
+        prefix = int(prefix)
+        if prefix > 0:
+            cov.built[:prefix] = True
+            cov.max_entry_page = prefix - 1
+        return cov
+
+    @property
+    def n_pages(self) -> int:
+        return self.built.shape[0]
+
+    def count(self) -> int:
+        return int(self.built.sum())
+
+    def prefix_len(self) -> int:
+        """Length of the leading all-built run."""
+        unbuilt = np.flatnonzero(~self.built)
+        return int(unbuilt[0]) if unbuilt.size else self.n_pages
+
+    def is_prefix(self) -> bool:
+        """True iff the built pages are exactly [0, prefix_len)."""
+        return self.count() == self.prefix_len()
+
+    def legacy_prefix_ok(self, built_pages: int) -> bool:
+        """May scans take the legacy ``start_page`` paths?  Only when
+        the bitmap is exactly the prefix ``built_pages`` claims and no
+        entry lies beyond it."""
+        built_pages = int(built_pages)
+        return (self.is_prefix()
+                and self.prefix_len() == built_pages
+                and self.max_entry_page < built_pages)
+
+    def set_pages(self, pages) -> None:
+        pages = np.asarray(pages, np.int64)
+        if pages.size:
+            self.built[pages] = True
+            self.max_entry_page = max(self.max_entry_page,
+                                      int(pages.max()))
+            self.version += 1
+
+    def clear_pages(self, pages) -> None:
+        pages = np.asarray(pages, np.int64)
+        if pages.size:
+            self.built[pages] = False
+            self.version += 1
+
+    def uncovered_pages(self, full_pages: int) -> np.ndarray:
+        """Unbuilt pages among the fully populated [0, full_pages)."""
+        return np.flatnonzero(~self.built[: int(full_pages)])
+
+    def _memo(self, key, build):
+        hit = self._cache.get(key)
+        if hit is not None and hit[0] == self.version:
+            return hit[1]
+        val = build()
+        self._cache[key] = (self.version, val)
+        return val
+
+    def global_mask(self) -> torch.Tensor:
+        """(n_pages,) bool mask over global page ids on ``device``."""
+        return self._memo(("global",), lambda: torch.from_numpy(
+            self.built.copy()).to(self.device))
+
+    def local_built(self, n_shards: int, max_pages: int) -> np.ndarray:
+        """(S, max_pages) bool host bitmap over round-robin local page
+        ids (global page p -> shard p % S, local page p // S), padded
+        with False."""
+        S = int(n_shards)
+        out = np.zeros((S, int(max_pages)), bool)
+        for s in range(S):
+            loc = self.built[s::S]
+            out[s, : loc.shape[0]] = loc
+        return out
+
+    def stacked_mask(self, n_shards: int, max_pages: int) -> torch.Tensor:
+        """(S, max_pages) bool mask (stacked-shard layout)."""
+        return self._memo(
+            ("stacked", n_shards, max_pages),
+            lambda: torch.from_numpy(
+                self.local_built(n_shards, max_pages)).to(self.device))
+
+    def packed_words(self, n_shards: int, max_pages: int) -> torch.Tensor:
+        """(S, W) int32 packed little-endian coverage words over local
+        page ids, W = ceil(max_pages / 32): bit ``p & 31`` of word
+        ``p >> 5`` is page p's built flag (the sign bit carries page 31
+        of each word) -- kernel K3's coverage operand."""
+
+        def build():
+            loc = self.local_built(n_shards, max_pages)
+            W = -(-loc.shape[1] // COVERAGE_WORD_BITS)
+            pad = W * COVERAGE_WORD_BITS - loc.shape[1]
+            bits = np.pad(loc, ((0, 0), (0, pad))).astype(np.uint32)
+            words = bits.reshape(loc.shape[0], W, COVERAGE_WORD_BITS)
+            weights = np.uint32(1) << np.arange(COVERAGE_WORD_BITS,
+                                                dtype=np.uint32)
+            packed = (words * weights).sum(axis=2, dtype=np.uint32)
+            return torch.from_numpy(packed.view(np.int32)).to(self.device)
+
+        return self._memo(("words", n_shards, max_pages), build)
+
+    def view(self, n_shards: int, max_pages: int) -> "CoverageView":
+        """Freeze the bitmap into the immutable bundle plans pin
+        (``built_host`` is a copy: ``set_pages`` mutates the live array
+        between bursts)."""
+        return self._memo(
+            ("view", n_shards, max_pages),
+            lambda: CoverageView(
+                prefix_len=self.prefix_len(),
+                count=self.count(),
+                built_host=self.built.copy(),
+                mask=self.stacked_mask(n_shards, max_pages),
+                words=self.packed_words(n_shards, max_pages)))
+
+
+class CoverageView(NamedTuple):
+    """Immutable coverage snapshot pinned into a ``ScanPlan``: every
+    plan of a burst is minted before any dispatch, so the view stays
+    consistent while crack adoption mutates the live bitmap during the
+    burst's accounting replay."""
+
+    prefix_len: int  # leading all-built run (start_page report)
+    count: int  # total built pages
+    built_host: np.ndarray  # (n_pages_global,) bool, host copy
+    mask: torch.Tensor  # (S, max_pages) bool, local page ids
+    words: torch.Tensor  # (S, W) int32 packed coverage words
+
+
+def eligible_global_pages(table: Table) -> np.ndarray:
+    """Global ids of the fully populated pages -- the only pages
+    eligible for a coverage bit (the watermark page is always
+    table-scanned).  Plain table: ``[0, n_rows // page_size)``."""
+    return np.arange(table.n_rows // table.page_size, dtype=np.int64)
+
+
+def coverage_from_state(state: AdHocIndex, table: Table) -> PageCoverage:
+    """A bitmap equivalent to an index state's built prefix."""
+    return PageCoverage.from_prefix(table.n_pages, state.built_pages,
+                                    table.page_size, table.device)
+
+
+def build_pages_at(index: AdHocIndex, table: Table, key_attrs: tuple,
+                   page_ids) -> AdHocIndex:
+    """Index an explicit page list (any order), leaving the
+    ``built_pages`` watermark untouched.
+
+    Callers pass only fully populated, not yet covered pages (the
+    coverage bitmap is the dedup authority).  Same extraction and
+    stable merge as ``build_pages_vap``.  The reference pads the list
+    to a power of two to bound its jit cache; padding entries are
+    invalid keys that never survive the capacity cut (the merged tail
+    is a prefix of the old invalid tail), so the unpadded merge gives
+    the same arrays.
+    """
+    psz = table.page_size
+    dev = table.device
+    pages = torch.as_tensor(np.asarray(page_ids, np.int64), device=dev)
+    cols = [table.data[pages, :, a] for a in key_attrs]  # (P, psz)
+    kh, kl = make_keys(cols)
+    kh, kl = kh.reshape(-1), kl.reshape(-1)
+    slot = torch.arange(psz, device=dev)[None, :]
+    new_rids = (pages[:, None] * psz + slot).reshape(-1)
+    valid = (table.begin_ts[pages] < INF_TS).reshape(-1)
+    kh = torch.where(valid, kh, I32_MAX)
+    kl = torch.where(valid, kl, I32_MAX)
+
+    mh = torch.cat([index.key_hi, kh])
+    ml = torch.cat([index.key_lo, kl])
+    mr = torch.cat([index.rids, new_rids.to(torch.int32)])
+    mh, ml, mr = _lexsort_merge(mh, ml, mr, index.capacity)
+    n_entries = index.n_entries + int(valid.sum())
+    return AdHocIndex(mh, ml, mr, n_entries, index.built_pages)
+
+
+def build_page_list(state: AdHocIndex, table: Table, key_attrs: tuple,
+                    global_pages) -> AdHocIndex:
+    """Build entries for an explicit global page list; returns the new
+    index state.  The caller flips the coverage bits."""
+    pages = [int(p) for p in global_pages]
+    if not pages:
+        return state
+    return build_pages_at(state, table, key_attrs, pages)

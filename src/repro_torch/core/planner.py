@@ -7,9 +7,12 @@ attribute is constrained by the predicate, estimate selectivity, and
 pick a hybrid scan for selective queries -- falling back to a table
 scan when the predicate is not selective or no index matches.  FULL
 indexes are usable only when complete (then as a pure index scan).
+A VAP index with a coverage bitmap that is not the legacy prefix
+plans the masked stitch (``hybrid_masked``) with the bitmap's view
+pinned into the plan.
 
-Value-based (VBP) indexes, coverage bitmaps and sharded storage are
-not ported yet: a VBP index in the catalog raises.
+Value-based (VBP) indexes and sharded storage are not ported yet: a
+VBP index in the catalog raises.
 """
 
 from __future__ import annotations
@@ -38,7 +41,14 @@ def built_fraction_of(scheme: str, vap, vbp, table) -> float:
 
 @dataclass
 class BuiltIndex:
-    """Catalog entry for one built (or building) index."""
+    """Catalog entry for one built (or building) index.
+
+    ``coverage`` (a ``core.index.PageCoverage``) is None unless the
+    crack-on-scan / decay options attached one; when present it is the
+    coverage authority: built fraction and size read the bitmap, the
+    planner routes non-prefix shapes to the masked path, and builds go
+    through explicit page lists.
+    """
 
     desc: IndexDescriptor
     scheme: str  # 'vap' | 'full'
@@ -48,11 +58,21 @@ class BuiltIndex:
     building: bool = True  # under construction (VAP/FULL)
     created_ms: float = 0.0
     last_used_ms: float = 0.0
+    coverage: Optional[object] = None  # PageCoverage (bitmap mode)
 
     def built_fraction(self, table) -> float:
+        if self.coverage is not None and self.scheme in ("vap", "full"):
+            full_pages = max(table.n_rows // table.page_size, 1)
+            return min(self.coverage.count() / full_pages, 1.0)
         return built_fraction_of(self.scheme, self.vap, self.vbp, table)
 
     def size_bytes(self) -> float:
+        if self.coverage is not None and self.scheme in ("vap", "full"):
+            # Decay clears bits without compacting the entries, so the
+            # bitmap is what the memory cap governs.
+            return 12.0 * float(
+                self.coverage.count() * self.coverage.page_size
+            )
         if self.scheme in ("vap", "full"):
             return 12.0 * float(self.vap.n_entries)
         _vbp_not_ported()
@@ -72,13 +92,18 @@ class IndexSnapshot:
 class ScanPlan:
     """One planned scan: the access path plus the index serving it.
 
-    ``path`` is 'table' | 'hybrid' | 'pure_vap'.  ``pinned_state`` is
-    the index state the plan was minted against.
+    ``path`` is 'table' | 'hybrid' | 'hybrid_masked' | 'pure_vap'.
+    ``pinned_state`` is the index state the plan was minted against;
+    ``pinned_coverage`` the frozen ``CoverageView`` of the masked path
+    (every plan of a burst is minted before any dispatch, so the view
+    holds for the whole burst while crack adoption mutates the live
+    bitmap).
     """
 
     path: str
     index: Optional[BuiltIndex] = None
     pinned_state: Optional[object] = None
+    pinned_coverage: Optional[object] = None
 
     @property
     def key_attrs(self) -> Tuple[int, ...]:
@@ -167,7 +192,27 @@ class QueryPlanner:
         vap, _vbp, complete = self._states(bi)
         if bi.scheme == "full" and complete:
             return ScanPlan("pure_vap", bi, pinned_state=vap)
+        cov = bi.coverage
+        if cov is not None and not self._coverage_is_legacy(cov, vap):
+            return ScanPlan(
+                "hybrid_masked",
+                bi,
+                pinned_state=vap,
+                pinned_coverage=self._pin_coverage(bi, cov),
+            )
         return ScanPlan("hybrid", bi, pinned_state=vap)  # VAP or FULL
+
+    @staticmethod
+    def _coverage_is_legacy(cov, vap) -> bool:
+        """A bitmap that IS the prefix the index watermark claims (with
+        no entries beyond it) takes the legacy start_page path, bit for
+        bit -- routing is a fast-path choice only."""
+        return cov.legacy_prefix_ok(vap.built_pages)
+
+    def _pin_coverage(self, bi: BuiltIndex, cov):
+        """Freeze the live bitmap into the view the burst pins (one
+        shard: a plain table)."""
+        return cov.view(1, self.db.tables[bi.desc.table].n_pages)
 
 
 def scan_cost(

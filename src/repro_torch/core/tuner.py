@@ -12,8 +12,15 @@ runs the observe-react-learn template:
 
 The tuner retains forecaster state for dropped indexes so their future
 utility stays predictable.  The forecaster runs in float32 on the
-database's device.  Shard-aware scheduling, hot-range page lists and
-decay (their database options) are not ported yet and raise.
+database's device.
+
+Coverage-bitmap scheduling (``Database.crack_on_scan`` /
+``index_decay``): a bitmap-mode VAP index's cycle slice becomes an
+explicit hot-range-first page list -- the monitor window's predicate
+ranges on the leading key attribute, mapped to pages through the zone
+map, hottest pages first -- and a decay pass clears the coldest
+covered pages' bits while the built footprint exceeds the storage
+budget.  Shard-aware scheduling is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -40,7 +47,10 @@ from repro_torch.core.classifier import (
 )
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database
-from repro_torch.core.index import build_pages_remaining
+from repro_torch.core.index import (
+    build_pages_remaining,
+    eligible_global_pages,
+)
 
 
 @dataclass
@@ -125,9 +135,8 @@ class PredictiveTuner:
         """The decision stages of Algorithm 1, with the cycle's build
         work returned as ``BuildQuantum`` records."""
         db, cfg = self.db, self.cfg
-        for flag in ("shard_aware_tuning", "index_decay", "crack_on_scan"):
-            if getattr(db, flag, False):
-                raise NotImplementedError(f"{flag} is not ported yet")
+        if getattr(db, "shard_aware_tuning", False):
+            raise NotImplementedError("shard_aware_tuning is not ported yet")
         db.monitor.prune(db.clock_ms)
 
         # Stage I: workload classification
@@ -225,6 +234,11 @@ class PredictiveTuner:
             if name not in db.indexes:
                 db.create_index(self.descs[name], scheme=self.scheme)
 
+        # Memory-cap decay (bitmap mode), before build quanta are
+        # planned, so this cycle's page lists see the decayed bitmap.
+        if getattr(db, "index_decay", False):
+            self._decay_cold_pages()
+
         # Lightweight build work, bounded per cycle and rebalanced
         # across building indexes by forecast utility.
         quanta: List[BuildQuantum] = []
@@ -252,6 +266,17 @@ class PredictiveTuner:
             if step <= 0:
                 continue
             u = float(util_by_name.get(b.desc.name, 0.0))
+            if b.coverage is not None:
+                pl = self._hot_range_pages(b, step)
+                if pl is not None:
+                    if pl:
+                        quanta.append(
+                            BuildQuantum(b.desc.name, len(pl), utility=u,
+                                         page_list=tuple(pl))
+                        )
+                    continue
+                # No range signal in the window: a quantum without a
+                # page list builds the lowest uncovered pages.
             quanta.append(BuildQuantum(b.desc.name, step, utility=u))
 
         # Stage III: index utility forecasting ------------------------
@@ -270,4 +295,71 @@ class PredictiveTuner:
 
     def _build_pages_left(self, b) -> int:
         """Pages this building index still has to cover."""
+        if b.coverage is not None:
+            return int(self.db.coverage_pages_left(b))
         return int(build_pages_remaining(b.vap, self.db.tables[b.desc.table]))
+
+    # ---- coverage-bitmap scheduling (hot ranges, decay) ---------------
+    def _range_heat(self, b, pages: np.ndarray):
+        """How many of the monitor window's range predicates on the
+        index's leading key attribute each page's zone-map range
+        intersects; None when the window has no such predicate."""
+        lead = b.desc.key_attrs[0]
+        ranges = [
+            (int(lo), int(hi))
+            for r in self.db.monitor.scan_records(b.desc.table)
+            for attr, lo, hi in r.pred_ranges
+            if attr == lead
+        ]
+        if not ranges:
+            return None
+        mins, maxs = self.db.zone_map(b.desc.table, lead)
+        pmin, pmax = mins[pages], maxs[pages]
+        heat = np.zeros(pages.size, np.int64)
+        for lo, hi in ranges:
+            heat += (pmin <= hi) & (pmax >= lo)
+        return heat
+
+    def _hot_range_pages(self, b, step: int):
+        """Hot-range-first build order for a bitmap-mode index: the
+        uncovered pages most window predicates touch, hottest first
+        (page id breaks ties).  A page list capped at ``step``, or None
+        when the window has no range signal."""
+        t = self.db.tables[b.desc.table]
+        eligible = eligible_global_pages(t)
+        open_pages = eligible[~b.coverage.built[eligible]]
+        if open_pages.size == 0:
+            return []
+        heat = self._range_heat(b, open_pages)
+        if heat is None or not heat.any():
+            return None
+        order = np.lexsort((open_pages, -heat))
+        return [int(p) for p in open_pages[order][: int(step)]]
+
+    def _decay_cold_pages(self) -> None:
+        """Memory-cap decay: while the built footprint exceeds the
+        storage budget, clear the coldest covered pages' bits (fewest
+        window predicate intersections; page id breaks ties).  Entries
+        are not compacted -- masked scans re-scan cleared pages -- and
+        a decayed index reopens (building, not complete)."""
+        db, cfg = self.db, self.cfg
+        over = db.total_index_bytes() - cfg.storage_budget_bytes
+        for b in db.indexes.values():
+            if over <= 0:
+                break
+            cov = b.coverage
+            if cov is None:
+                continue
+            covered = np.flatnonzero(cov.built)
+            if covered.size == 0:
+                continue
+            t = db.tables[b.desc.table]
+            page_bytes = 12.0 * t.page_size
+            heat = self._range_heat(b, covered)
+            if heat is None:
+                heat = np.zeros(covered.size, np.int64)
+            order = np.lexsort((covered, heat))
+            n_drop = min(int(np.ceil(over / page_bytes)), covered.size)
+            cov.clear_pages(covered[order[:n_drop]])
+            b.building, b.complete = True, False
+            over -= n_drop * page_bytes

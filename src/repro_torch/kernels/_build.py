@@ -30,6 +30,8 @@ _PLANES = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I]
 SIGNATURES = {
     "batched_filter_agg_launch": _PLANES + [_P] * 6 + [_I, _P, _P, _P],
     "filter_agg_launch": _PLANES + [_I] * 6 + [_P, _P, _P],
+    "masked_filter_agg_launch": _PLANES + [_P] * 5 + [_I, _P, _I, _P, _I, _I,
+                                                      _P, _P, _P],
 }
 
 _LIB = None

@@ -1,15 +1,19 @@
-"""K1: multi-query fused filter+aggregate table scan.
+"""K1 and K3: multi-query fused filter+aggregate table scans.
 
-Port of the Pallas TPU kernel ``repro.kernels.batched_filter_agg.
-batched_filter_agg``.  One launch evaluates a whole batch of
-conjunctive range-aggregate queries over shared column planes; the
-CUDA C++ kernel is ``csrc/filter_agg.cu`` (``batched_filter_agg_launch``,
-where the source note explains the design and what bounds it).
+Ports of the Pallas TPU kernels ``repro.kernels.batched_filter_agg.
+batched_filter_agg`` (K1) and ``sharded_batched_filter_agg_masked``
+(K3).  One launch evaluates a whole batch of conjunctive
+range-aggregate queries over shared column planes; the CUDA C++
+kernels are in ``csrc/filter_agg.cu`` (``batched_filter_agg_launch``
+and ``masked_filter_agg_launch``, where the source note explains the
+design and what bounds them).  K3 scans only the pages a coverage
+bitmap leaves uncovered, over S stacked shards.
 
-``batched_filter_agg`` is the wrapper: for tensors on the CPU it takes
-``batched_filter_agg_plain``, the plain PyTorch version beside it;
-for CUDA tensors it launches the kernel or raises.  ``launches``
-counts kernel launches.
+``batched_filter_agg`` and ``sharded_batched_filter_agg_masked`` are
+the wrappers: for tensors on the CPU they take the plain PyTorch
+version beside them (``..._plain``); for CUDA tensors they launch the
+kernel or raise.  ``launches`` counts K1 launches, ``masked_launches``
+K3 launches.
 
 Column planes are (n_pages, page_size) int32 and may be strided views
 of the table's (n_pages, page_size, n_attrs) array (``data[..., a]``):
@@ -27,7 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ref import batched_filter_agg_ref
+from repro_torch.kernels.ref import (
+    batched_filter_agg_ref,
+    sharded_batched_filter_agg_masked_ref,
+)
 
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
@@ -35,7 +42,8 @@ I32_MAX = 2**31 - 1
 # Rows one CUDA block scans: 256 threads x 4 rows x 4 passes.
 TILE_ROWS = 4096
 
-launches = 0  # kernel launches since the last reset (plain runs excluded)
+launches = 0  # K1 launches since the last reset (plain runs excluded)
+masked_launches = 0  # K3 launches since the last reset
 
 
 def tile_pages(n_pages: int, page_size: int) -> int:
@@ -45,7 +53,7 @@ def tile_pages(n_pages: int, page_size: int) -> int:
 
 
 def _row_stride(plane: torch.Tensor, shape, device, name: str) -> int:
-    """Element stride between consecutive rows of a (n_pages,
+    """Element stride between consecutive rows of a ([S,] n_pages,
     page_size) plane whose rows are evenly spaced in memory."""
     if plane.dtype != torch.int32:
         raise TypeError(f"{name} must be int32, got {plane.dtype}")
@@ -54,19 +62,23 @@ def _row_stride(plane: torch.Tensor, shape, device, name: str) -> int:
                          f"expected {tuple(shape)}")
     if plane.device != device:
         raise ValueError(f"{name} is on {plane.device}, expected {device}")
-    stride = plane.stride(1)
-    if plane.shape[0] > 1 and plane.stride(0) != plane.shape[1] * stride:
-        raise ValueError(f"{name} rows are not evenly spaced "
-                         f"(strides {plane.stride()})")
+    stride = plane.stride(-1)
+    span = stride
+    for dim in range(plane.dim() - 2, -1, -1):
+        span *= plane.shape[dim + 1]
+        if plane.shape[dim] > 1 and plane.stride(dim) != span:
+            raise ValueError(f"{name} rows are not evenly spaced "
+                             f"(strides {plane.stride()})")
     return stride
 
 
-def check_planes(planes, names=("pred0", "pred1", "agg", "begin_ts",
-                                "end_ts")):
+def check_planes(planes, ndim=2, names=("pred0", "pred1", "agg",
+                                        "begin_ts", "end_ts")):
     """Validate the five column planes; returns their row strides."""
     shape, device = planes[0].shape, planes[0].device
-    if len(shape) != 2:
-        raise ValueError(f"column planes must be 2-D, got {tuple(shape)}")
+    if len(shape) != ndim:
+        raise ValueError(f"column planes must be {ndim}-D, got "
+                         f"{tuple(shape)}")
     return [_row_stride(x, shape, device, n) for x, n in zip(planes, names)]
 
 
@@ -155,4 +167,101 @@ def batched_filter_agg(
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     launches += 1
+    return out_sum, out_cnt
+
+
+def sharded_batched_filter_agg_masked_plain(pred0, pred1, agg, begin_ts,
+                                            end_ts, los0, his0, los1, his1,
+                                            tss, words, local_pages):
+    """Plain PyTorch version of K3: the oracle
+    ``ref.sharded_batched_filter_agg_masked_ref``."""
+    return sharded_batched_filter_agg_masked_ref(
+        pred0, pred1, agg, begin_ts, end_ts, los0, his0, los1, his1, tss,
+        words, local_pages)
+
+
+def sharded_batched_filter_agg_masked(
+    pred0,
+    pred1,
+    agg,
+    begin_ts,
+    end_ts,
+    los0,
+    his0,
+    los1,
+    his1,
+    tss,
+    words,
+    local_pages,
+    block_pages: int | None = None,
+):
+    """Multi-shard multi-query scan of the UNCOVERED pages (K3).
+
+    Column planes are (S, n_pages, page_size) int32 stacked per shard
+    (a plain table passes S = 1); per-query operands ``los0/his0/los1/
+    his1/tss`` are (n_queries,) int32; ``words`` is (S, W) int32, the
+    packed coverage words (``index.PageCoverage.packed_words``), with
+    W * 32 >= n_pages; ``local_pages`` (S,) int32 is each shard's real
+    page count -- pages at or past it contribute nothing.  Returns
+    (sums, counts), each (n_queries,) int32 over uncovered pages only.
+    """
+    planes = (pred0, pred1, agg, begin_ts, end_ts)
+    strides = check_planes(planes, ndim=3)
+    dev = pred0.device
+    n_shards, n_pages, page_size = pred0.shape
+    nq = los0.shape[0]
+    ops = [
+        _query_operand(x, nq, dev, n)
+        for x, n in zip((los0, his0, los1, his1, tss),
+                        ("los0", "his0", "los1", "his1", "tss"))
+    ]
+    local_pages = _query_operand(local_pages, n_shards, dev, "local_pages")
+    if words.dtype != torch.int32 or words.dim() != 2 or (
+            words.shape[0] != n_shards):
+        raise ValueError(f"words must be ({n_shards}, W) int32, got "
+                         f"{tuple(words.shape)} {words.dtype}")
+    if words.device != dev:
+        raise ValueError(f"words is on {words.device}, expected {dev}")
+    n_words = words.shape[1]
+    if n_words * 32 < n_pages:
+        raise ValueError(f"{n_words} coverage words per shard cannot cover "
+                         f"{n_pages} pages (need W * 32 >= n_pages)")
+    words = words.contiguous()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K3 kernel for device {dev}")
+    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    if nq == 0 or n_pages == 0 or n_shards == 0:
+        return out_sum, out_cnt
+    if dev.type == "cpu":
+        return sharded_batched_filter_agg_masked_plain(
+            *planes, *ops, words, local_pages)
+    from repro_torch.kernels._build import library
+
+    global masked_launches
+    bp = int(block_pages or tile_pages(n_pages, page_size))
+    plane_args = []
+    for x, s in zip(planes, strides):
+        plane_args += [x.data_ptr(), s]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().masked_filter_agg_launch(
+            *plane_args,
+            n_shards * n_pages * page_size,
+            page_size,
+            bp * page_size,
+            *[x.data_ptr() for x in ops],
+            nq,
+            words.data_ptr(),
+            n_words,
+            local_pages.data_ptr(),
+            n_shards,
+            n_pages,
+            out_sum.data_ptr(),
+            out_cnt.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K3 launch failed: CUDA error {err}")
+    masked_launches += 1
     return out_sum, out_cnt

@@ -1,12 +1,17 @@
 // Fused predicate-filter + aggregate table scans for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels on the read path:
+// Replaces three Pallas TPU kernels on the read path:
 //   K1  src/repro/kernels/batched_filter_agg.py:163  batched_filter_agg
 //       (kernel body _batched_kernel)   -> batched_filter_agg_launch
 //   K2  src/repro/kernels/filter_agg.py:103          filter_agg
 //       (kernel body _filter_agg_kernel) -> filter_agg_launch
+//   K3  src/repro/kernels/batched_filter_agg.py:483
+//       sharded_batched_filter_agg_masked
+//       (kernel body _masked_sharded_kernel) -> masked_filter_agg_launch
 // K2 is the B = 1 instance of K1: both entry points run the same tile
 // body, so a one-query batch is bit-identical to the single-query scan.
+// K3 runs the same tile body over the UNCOVERED pages of a coverage
+// bitmap (notes at masked_filter_agg_kernel below).
 //
 // Semantics (src/repro/kernels/ref.py): for each query q, SUM(agg) and
 // COUNT(*) over the rows with
@@ -75,14 +80,27 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
+// K3's page filter: a row takes part only if its page's coverage bit
+// is 0.  `words` is the shard's row of packed little-endian words
+// (bit p & 31 of word p >> 5 is local page p), `page_base` the global
+// page id of the shard's local page 0.
+struct Coverage {
+  const uint32_t* words;
+  long long page_base;
+};
+
 // Scan rows [row0, row_end) for the nq <= kQueryChunk queries whose
 // bounds are staged in shared memory, and add the block's partial sums
-// into out_sum[0:nq] / out_cnt[0:nq].  Every thread of the block must
-// call it: the loops below are uniform across the block, so the warp
-// shuffles always see full warps.
+// into out_sum[0:nq] / out_cnt[0:nq].  With kMasked, rows of covered
+// pages are dropped (the caller keeps row_end inside the pages that
+// have a word).  Every thread of the block must call it: the loops
+// below are uniform across the block, so the warp shuffles always see
+// full warps.
+template <bool kMasked>
 __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
                           long long row0, long long row_end,
-                          unsigned* out_sum, unsigned* out_cnt) {
+                          const Coverage& cov, unsigned* out_sum,
+                          unsigned* out_cnt) {
   __shared__ unsigned acc_sum[kWarps][kQueryChunk];
   __shared__ unsigned acc_cnt[kWarps][kQueryChunk];
   const int warp = threadIdx.x >> 5;
@@ -104,6 +122,10 @@ __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
     for (int k = 0; k < kRowsPerThread; ++k) {
       const long long r = base + (long long)k * kThreads + threadIdx.x;
       live[k] = r < row_end;
+      if (kMasked && live[k]) {  // a covered page's rows load nothing
+        const int lp = (int)(r / p.page_size - cov.page_base);
+        live[k] = ((cov.words[lp >> 5] >> (lp & 31)) & 1u) == 0u;
+      }
       if (live[k]) {
         v0[k] = p.pred0[r * p.stride0];
         v1[k] = p.pred1[r * p.stride1];
@@ -183,7 +205,8 @@ batched_filter_agg_kernel(Planes p, const int32_t* __restrict__ lo0,
                      hi1[qc + q], ts[qc + q], start_pages[qc + q]};
     }
     __syncthreads();
-    scan_tile(p, qs, n, row0, row_end, out_sum + qc, out_cnt + qc);
+    scan_tile<false>(p, qs, n, row0, row_end, Coverage{}, out_sum + qc,
+                     out_cnt + qc);
   }
 }
 
@@ -198,7 +221,62 @@ filter_agg_kernel(Planes p, Bounds b, unsigned* out_sum, unsigned* out_cnt) {
   if (last_page < b.start_page) return;  // inside the indexed prefix
   if (threadIdx.x == 0) qs[0] = b;
   __syncthreads();
-  scan_tile(p, qs, 1, row0, row_end, out_sum, out_cnt);
+  scan_tile<false>(p, qs, 1, row0, row_end, Coverage{}, out_sum, out_cnt);
+}
+
+// K3: the scan over the pages a coverage bitmap leaves uncovered, over
+// S stacked shards of n_pages pages each (a plain table is S = 1).
+// Grid (tiles of one shard, shard).  What bounds it is the same as K1
+// (bytes, of the uncovered pages only); the TPU kernel's live-block
+// window and pre-DMA skip become an early return: a block first reads
+// its tile's coverage words (at most ceil(tile_pages / 32) + 1) and
+// returns before it loads any row when every page of its tile is
+// covered or lies at or past the shard's local_pages.  Inside a live
+// tile each row tests its page's bit.
+//
+// Unlike the TPU kernel, which reads words[s, p / 32] for padding
+// pages past W * 32, no word at or past W is ever read: the wrapper
+// requires W * 32 >= n_pages, and pages at or past local_pages[s]
+// contribute nothing.  Where the reference's contract holds (padding
+// pages carry begin_ts = INT32_MAX and so are invisible) the results
+// are the same.
+__global__ void __launch_bounds__(kThreads)
+masked_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
+                         const int32_t* __restrict__ lo0,
+                         const int32_t* __restrict__ hi0,
+                         const int32_t* __restrict__ lo1,
+                         const int32_t* __restrict__ hi1,
+                         const int32_t* __restrict__ ts, int nq,
+                         const uint32_t* __restrict__ words, int n_words,
+                         const int32_t* __restrict__ local_pages,
+                         unsigned* out_sum, unsigned* out_cnt) {
+  __shared__ Bounds qs[kQueryChunk];
+  const int s = blockIdx.y;
+  const long long first = (long long)blockIdx.x * tile_pages;
+  long long last = first + tile_pages;  // exclusive
+  if (last > n_pages) last = n_pages;
+  if (last > local_pages[s]) last = local_pages[s];
+  if (first >= last) return;  // padding past the shard's real pages
+
+  const Coverage cov{words + (long long)s * n_words, (long long)s * n_pages};
+  int open = 0;
+  for (long long pg = first + threadIdx.x; pg < last; pg += kThreads) {
+    open |= ((cov.words[pg >> 5] >> (pg & 31)) & 1u) == 0u;
+  }
+  if (!__syncthreads_or(open)) return;  // every page covered: load nothing
+
+  const long long row0 = (cov.page_base + first) * p.page_size;
+  const long long row_end = (cov.page_base + last) * p.page_size;
+  for (int qc = 0; qc < nq; qc += kQueryChunk) {
+    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      qs[q] = Bounds{lo0[qc + q], hi0[qc + q], lo1[qc + q],
+                     hi1[qc + q], ts[qc + q], 0};
+    }
+    __syncthreads();
+    scan_tile<true>(p, qs, n, row0, row_end, cov, out_sum + qc,
+                    out_cnt + qc);
+  }
 }
 
 Planes make_planes(const void* pred0, long long stride0, const void* pred1,
@@ -268,5 +346,32 @@ extern "C" int filter_agg_launch(
   filter_agg_kernel<<<(unsigned)n_tiles, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       p, b, static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int masked_filter_agg_launch(
+    const void* pred0, long long stride0, const void* pred1,
+    long long stride1, const void* agg, long long stride_agg,
+    const void* begin_ts, long long stride_begin, const void* end_ts,
+    long long stride_end, long long n_rows, int page_size, int tile_rows,
+    const void* lo0, const void* hi0, const void* lo1, const void* hi1,
+    const void* ts, int nq, const void* words, int n_words,
+    const void* local_pages, int n_shards, int n_pages, void* out_sum,
+    void* out_cnt, void* stream) {
+  if (n_rows <= 0 || nq <= 0 || n_shards <= 0) return 0;
+  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
+                               stride_agg, begin_ts, stride_begin, end_ts,
+                               stride_end, n_rows, page_size, tile_rows);
+  const int tile_pages = tile_rows / page_size;
+  const long long n_tiles = ((long long)n_pages + tile_pages - 1) / tile_pages;
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_shards);
+  masked_filter_agg_kernel<<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      p, n_pages, tile_pages, static_cast<const int32_t*>(lo0),
+      static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
+      static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts), nq,
+      static_cast<const uint32_t*>(words), n_words,
+      static_cast<const int32_t*>(local_pages),
+      static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,16 @@
 """Table adapters around the scan kernels.
 
 Port of ``repro.kernels.ops`` for plain tables: ``scan_table`` /
-``scan_table_hybrid`` (K2) and ``scan_table_batched`` (K1) adapt the
-engine's Table layout -- columns stacked in one (n_pages, page_size,
-n_attrs) array -- to the kernels' column-plane interface.  The planes
-are strided views of ``table.data``; nothing is copied.  The launch's
-tile is ``batched_filter_agg.tile_pages`` unless ``block_pages`` is
-given; results do not depend on it.
+``scan_table_hybrid`` (K2), ``scan_table_batched`` (K1) and
+``scan_table_batched_masked`` (K3, one shard) adapt the engine's Table
+layout -- columns stacked in one (n_pages, page_size, n_attrs) array
+-- to the kernels' column-plane interface.  The planes are strided
+views of ``table.data``; nothing is copied.  The launch's tile is
+``batched_filter_agg.tile_pages`` unless ``block_pages`` is given;
+results do not depend on it.
 
-The masked (coverage-bitmap, K3) and sharded (K4) adapters are not
-ported yet and raise.
+The sharded adapters (K4, and K3 over stacked shards) are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -154,8 +155,37 @@ def _not_ported(name, kernel, slice_name):
     return fn
 
 
-scan_table_batched_masked = _not_ported(
-    "scan_table_batched_masked", "K3", "coverage-bitmap")
+def scan_table_batched_masked(
+    table, attrs, los, his, tss, agg_attr, words, block_pages=None
+):
+    """Masked-stitch table suffix over a plain Table via K3: scans
+    exactly the UNCOVERED pages of the coverage bitmap whose packed
+    words are ``words`` ((1, W) int32, ``PageCoverage.packed_words``).
+    Returns (sums, counts), each (n_queries,) int32 -- the caller adds
+    the covered-page index half (``hybrid_scan.
+    batched_masked_index_side``).  A one-shard launch of K3."""
+    _check_attrs(attrs)
+    dev = table.data.device
+    pred0, pred1, los0, his0, los1, his1 = _batch_bounds(
+        table.data, attrs, los, his
+    )
+    return _bfa.sharded_batched_filter_agg_masked(
+        pred0[None],
+        pred1[None],
+        table.data[..., agg_attr][None],
+        table.begin_ts[None],
+        table.end_ts[None],
+        los0,
+        his0,
+        los1,
+        his1,
+        torch.as_tensor(tss, dtype=torch.int32, device=dev),
+        torch.as_tensor(words, dtype=torch.int32, device=dev),
+        torch.tensor([table.n_pages], dtype=torch.int32, device=dev),
+        block_pages=block_pages,
+    )
+
+
 scan_shards_batched = _not_ported("scan_shards_batched", "K4", "sharded")
 scan_shards_batched_masked = _not_ported(
-    "scan_shards_batched_masked", "K3", "coverage-bitmap")
+    "scan_shards_batched_masked", "K3 over stacked shards", "sharded")

@@ -84,3 +84,52 @@ def batched_filter_agg_ref(
         sums.append(s)
         cnts.append(c)
     return torch.stack(sums), torch.stack(cnts)
+
+
+def sharded_batched_filter_agg_masked_ref(
+    pred0,
+    pred1,
+    agg,
+    begin_ts,
+    end_ts,
+    los0,
+    his0,
+    los1,
+    his1,
+    tss,
+    words,
+    local_pages,
+):
+    """Multi-shard multi-query scan of the UNCOVERED pages (kernel K3).
+
+    Planes are (S, n_pages, page_size) int32; per-query operands
+    (n_queries,); ``words`` (S, W) int32 packed little-endian coverage
+    words (bit ``p & 31`` of word ``p >> 5`` is local page p's built
+    flag) with W * 32 >= n_pages; ``local_pages`` (S,) each shard's
+    real page count.  Per query and shard, one whole-table mask: rows
+    of ``filter_agg_ref`` whose page p has ``covered[p] == 0`` and
+    ``p < local_pages[s]``.  Returns (sums, counts), each (n_queries,)
+    int32, summed over shards.
+    """
+    S, n_pages, _ = pred0.shape
+    W = words.shape[1]
+    if W * 32 < n_pages:
+        raise ValueError(f"{W} coverage words cannot cover {n_pages} pages")
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = ((words[:, :, None] >> shifts) & 1).reshape(S, W * 32)
+    page = torch.arange(n_pages, device=words.device)
+    open_page = (bits[:, :n_pages] == 0) & (page[None, :]
+                                            < local_pages[:, None])
+    open_page = open_page[:, :, None]
+    sums, cnts = [], []
+    for q in range(los0.shape[0]):
+        mask = (pred0 >= los0[q]) & (pred0 <= his0[q])
+        mask &= (pred1 >= los1[q]) & (pred1 <= his1[q])
+        mask &= (begin_ts <= tss[q]) & (tss[q] < end_ts)
+        mask &= open_page
+        sums.append(i32_sum(torch.where(mask, agg, 0)))
+        cnts.append(i32_sum(mask))
+    if not sums:
+        z = torch.zeros((0,), dtype=torch.int32, device=pred0.device)
+        return z, z.clone()
+    return torch.stack(sums), torch.stack(cnts)

@@ -9,12 +9,9 @@ the reference and in the port, started from one state through
 decisions (indexes created and dropped, build quanta emitted, pages
 built) must match exactly.
 
-Forecasts are float32 and agree to a relative 1e-5 only: on the CPU,
-XLA fuses ``(1 - beta) * trend + beta * (...)`` into one fused
-multiply-add, while PyTorch rounds the product first, so the two can
-differ in the last bit, and the trend (a difference of levels) and the
-forecast built on it amplify that (ROADMAP.md queue 3 item 5).  Hence
-the decisions they drive are compared exactly as well.
+Forecasts are float32 and bit-equal too: the port rounds each
+Holt-Winters update as XLA on the CPU contracts it, with one fused
+multiply-add (``repro_torch.core.forecaster``).
 """
 
 import dataclasses
@@ -34,7 +31,6 @@ from repro_torch.core.executor import Query as PQuery
 
 STAT_FIELDS = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
                "rows_modified", "populate_units", "shard_pages")
-FORECAST_RTOL = 1e-5
 
 
 def _port_query(q):
@@ -76,15 +72,11 @@ def _assert_same_state(rdb, pdb):
 
 def _assert_same_cycle(rp, pp, rtun, ptun):
     assert [(q.index_name, q.pages, q.shard, q.page_list)
-            for q in rp.quanta] == [(q.index_name, q.pages, None, ())
+            for q in rp.quanta] == [(q.index_name, q.pages, None, q.page_list)
                                     for q in pp.quanta]
-    np.testing.assert_allclose([q.utility for q in pp.quanta],
-                               [q.utility for q in rp.quanta],
-                               rtol=FORECAST_RTOL)
+    assert [q.utility for q in pp.quanta] == [q.utility for q in rp.quanta]
     assert rp.decide_work == pp.decide_work
-    assert sorted(rtun.forecasts) == sorted(ptun.forecasts)
-    for name, f in rtun.forecasts.items():
-        assert ptun.forecasts[name] == pytest.approx(f, rel=FORECAST_RTOL)
+    assert ptun.forecasts == rtun.forecasts
     assert (rtun.last_label, rtun.cycles) == (ptun.last_label, ptun.cycles)
 
 
@@ -144,37 +136,36 @@ def test_tuning_cycle_bursts_match_reference(use_kernel):
     assert "narrow:2" in pdb.indexes
 
 
-def _assert_hw_close(ref, port):
-    """Holt-Winters states agree to FORECAST_RTOL; the trend, a
-    difference of levels, to FORECAST_RTOL of the level."""
-    level = np.abs(np.asarray(ref.level))
-    for name in ("level", "season"):
-        np.testing.assert_allclose(getattr(port, name).numpy(),
-                                   np.asarray(getattr(ref, name)),
-                                   rtol=FORECAST_RTOL)
-    np.testing.assert_allclose(port.trend.numpy(), np.asarray(ref.trend),
-                               rtol=0, atol=FORECAST_RTOL * level.max())
-    np.testing.assert_array_equal(port.t.numpy(), np.asarray(ref.t))
+def _assert_hw_equal(ref, port):
+    """Holt-Winters states are bit-equal (float32 bits compared)."""
+    for name in ("level", "trend", "season", "t"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
 
 
-def test_forecaster_matches_reference_within_float32_ulps():
+@pytest.mark.parametrize("params", [(0.5, 0.3, 0.4), (0.37, 0.21, 0.63)])
+def test_forecaster_matches_reference_within_float32_ulps(params):
+    """Bit-equal: 0 ulps, at the default smoothing parameters and at
+    ones whose products are all inexact, with no re-sync between
+    steps; the unbatched jitted update, the vmapped batch form and
+    forecasts at h in {1, 2, 3} (h * trend exact and not)."""
     rng = np.random.default_rng(0)
     rs, ps = R_hw.init_state(16), P_hw.init_state(16)
     for y in rng.uniform(0.0, 3e5, 200):
-        rs = R_hw.update(rs, float(y), 0.5, 0.3, 0.4)
-        ps = P_hw.update(ps, float(y), 0.5, 0.3, 0.4)
-        _assert_hw_close(rs, ps)
-        assert float(P_hw.forecast(ps, 1)) == pytest.approx(
-            float(R_hw.forecast(rs, 1)), rel=FORECAST_RTOL)
-        # Re-sync so ulp differences do not accumulate across steps.
-        ps = P_hw.HWState(*[torch.tensor(np.asarray(a)) for a in rs])
-    ys = rng.uniform(0.0, 10.0, (4,))
-    rb = R_hw.update_batch(R_hw.init_state(8, batch=4), ys, 0.5, 0.3, 0.4)
-    pb = P_hw.update_batch(P_hw.init_state(8, batch=4), ys, 0.5, 0.3, 0.4)
-    _assert_hw_close(rb, pb)
-    np.testing.assert_allclose(P_hw.forecast_batch(pb, 2).numpy(),
-                               np.asarray(R_hw.forecast_batch(rb, 2)),
-                               rtol=FORECAST_RTOL)
+        rs = R_hw.update(rs, float(y), *params)
+        ps = P_hw.update(ps, float(y), *params)
+        _assert_hw_equal(rs, ps)
+        for h in (1, 3):
+            assert float(P_hw.forecast(ps, h)) == float(R_hw.forecast(rs, h))
+    rb, pb = R_hw.init_state(8, batch=64), P_hw.init_state(8, batch=64)
+    for ys in rng.uniform(0.0, 3e5, (20, 64)).astype(np.float32):
+        rb = R_hw.update_batch(rb, ys, *params)
+        pb = P_hw.update_batch(pb, ys, *params)
+        _assert_hw_equal(rb, pb)
+    for h in (1, 2, 3):
+        np.testing.assert_array_equal(P_hw.forecast_batch(pb, h).numpy(),
+                                      np.asarray(R_hw.forecast_batch(rb, h)))
 
 
 def test_unported_features_raise():
@@ -187,7 +178,12 @@ def test_unported_features_raise():
         db.create_index(P.IndexDescriptor("narrow", (1,)), "vbp")
     with pytest.raises(NotImplementedError):
         P.Database(dict(src.tables), num_shards=2)
+    # Coverage bitmaps are ported: crack-on-scan and decay now run.
     db.crack_on_scan = True
+    db.index_decay = True
+    assert db.execute_batch([gen.low_s()])[0].count >= 0
+    P.PredictiveTuner(db).decide()
+    db.shard_aware_tuning = True
     with pytest.raises(NotImplementedError):
         db.execute_batch([gen.low_s()])
     with pytest.raises(NotImplementedError):

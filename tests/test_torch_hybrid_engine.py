@@ -15,6 +15,7 @@ from repro.core import index as R_ix
 from repro.core import table as R_tb
 from repro.core.engine import ScanEngine as RefEngine
 from repro_torch.core import hybrid_scan as P_hs
+from repro_torch.core import index as P_ix
 from repro_torch.core.convert import from_reference
 from repro_torch.core.engine import ScanEngine
 from repro_torch.core.planner import ScanPlan
@@ -167,7 +168,37 @@ def test_engine_single_scan_and_unported_paths():
     p = eng.scan(pt, plan, (1,), los, his, 6, 3)
     _assert_same(r, p, R_hs.ScanResult._fields)
     assert eng.last_tier == "single"
-    for path in ("hybrid_masked", "hybrid_ps", "pure_vbp"):
+    # The masked stitch is ported: single (no kernel, as in the
+    # reference) and batched dispatches, kernel tier off and on.
+    built = np.zeros(N_PAGES, bool)
+    built[[0, 1, 2, 5, 6, 11]] = True
+    rcov, pcov = R_ix.PageCoverage(N_PAGES, PSZ), P_ix.PageCoverage(
+        N_PAGES, PSZ)
+    for cov in (rcov, pcov):
+        cov.set_pages(np.flatnonzero(built))
+    rview, pview = rcov.view(1, N_PAGES), pcov.view(1, N_PAGES)
+    ref_plan = _ref_plan(ri)
+    ref_plan = type(ref_plan)("hybrid_masked", ref_plan.index,
+                              pinned_state=ri, pinned_coverage=rview)
+    plan = ScanPlan("hybrid_masked", _Bi((1,)), pinned_state=pi,
+                    pinned_coverage=pview)
+    r = RefEngine().scan(rt, ref_plan, (1,), jnp.array(los),
+                         jnp.array(his), 6, 3)
+    p = eng.scan(pt, plan, (1,), los, his, 6, 3)
+    _assert_same(r, p, R_hs.ScanResult._fields)
+    assert eng.last_tier == "single"
+    blos, bhis, btss = _queries(4, (1,))
+    for use_kernel, tier in ((False, "single"), (True, "kernel")):
+        r = RefEngine().scan_batch(rt, "hybrid_masked", ri, (1,), (1,),
+                                   blos, bhis, btss, 3,
+                                   use_kernel=use_kernel, coverage=rview)
+        p = eng.scan_batch(pt, "hybrid_masked", pi, (1,), (1,),
+                           torch.from_numpy(blos), torch.from_numpy(bhis),
+                           torch.from_numpy(btss), 3,
+                           use_kernel=use_kernel, coverage=pview)
+        _assert_same(r, p, R_hs.BatchScanResult._fields)
+        assert eng.last_tier == tier
+    for path in ("hybrid_ps", "pure_vbp"):
         with pytest.raises(NotImplementedError):
             eng.scan_batch(pt, path, pi, (1,), (1,), None, None, None, 3)
     with pytest.raises(NotImplementedError):

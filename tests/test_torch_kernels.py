@@ -204,10 +204,18 @@ def test_ops_adapters_match_reference(attrs):
 
 
 def test_unported_adapters_raise():
-    for fn in (ops.scan_table_batched_masked, ops.scan_shards_batched,
-               ops.scan_shards_batched_masked):
-        with pytest.raises(NotImplementedError):
+    for fn in (ops.scan_shards_batched, ops.scan_shards_batched_masked):
+        with pytest.raises(NotImplementedError, match="sharded"):
             fn(None, (1,), None, None, None, 2, None)
+    # The plain-table masked adapter is ported (K3, one shard): an empty
+    # bitmap scans every page, as K1 from page 0 does.
+    _, pt = _ref_and_port_table(seed=3)
+    los = torch.tensor([[100], [400]], dtype=torch.int32)
+    his, tss = los + 300, torch.zeros(2, dtype=torch.int32)
+    words = torch.zeros((1, 1), dtype=torch.int32)
+    got = ops.scan_table_batched_masked(pt, (1,), los, his, tss, 2, words)
+    want = ops.scan_table_batched(pt, (1,), los, his, tss, 2)
+    assert [x.tolist() for x in got] == [x.tolist() for x in want]
 
 
 def test_wrappers_import_without_nvcc_and_never_fall_back(monkeypatch,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1/K2 against their plain PyTorch versions.
+"""The port's CUDA kernels K1/K2/K3 against their plain PyTorch versions.
 
 These need the card: each test skips without a CUDA device.  The file
 imports nothing of JAX, so it runs on a machine that has only the
@@ -72,3 +72,71 @@ def test_cuda_k2_matches_plain(cuda, start_page):
     assert fa.launches == before + 1
     ps, pc = fa.filter_agg_plain(*planes, *args, start_page=start_page)
     assert (int(s), int(c)) == (int(ps), int(pc))
+
+
+def _masked_inputs(seed, S, n_pages=333, psz=32, cover="scattered"):
+    """Stacked (S, n_pages, psz) planes with ragged real page counts
+    (padding pages invisible), queries, and packed coverage words."""
+    rng = np.random.default_rng(seed)
+    data = torch.from_numpy(rng.integers(
+        2**30, I32_MAX, size=(S, n_pages, psz, 5)).astype(np.int32))
+    begin = rng.integers(0, 20, size=(S, n_pages, psz)).astype(np.int32)
+    end = np.where(rng.random((S, n_pages, psz)) < 0.2,
+                   rng.integers(5, 30, size=(S, n_pages, psz)),
+                   I32_MAX).astype(np.int32)
+    local = np.array([n_pages - 37 * s for s in range(S)], np.int32)
+    for s in range(S):
+        begin[s, local[s]:] = I32_MAX
+    built = {"empty": np.zeros((S, n_pages), bool),
+             "prefix": np.arange(n_pages)[None, :].repeat(S, 0) < 100,
+             "scattered": rng.random((S, n_pages)) < 0.6,
+             "full": np.ones((S, n_pages), bool)}[cover]
+    W = -(-n_pages // 32)
+    bits = np.pad(built, ((0, 0), (0, W * 32 - n_pages))).astype(np.uint32)
+    words = (bits.reshape(S, W, 32) << np.arange(32, dtype=np.uint32)).sum(
+        axis=2, dtype=np.uint32).view(np.int32)
+    planes = (data[..., 1], data[..., 3], data[..., 2],
+              torch.from_numpy(begin), torch.from_numpy(end))
+    q = _queries(seed, 9, n_pages)[:5]
+    return planes, q, torch.from_numpy(words), torch.from_numpy(local)
+
+
+@pytest.mark.parametrize("cover", ["empty", "prefix", "scattered", "full"])
+@pytest.mark.parametrize("block_pages", [None, 1, 7, 40])
+@pytest.mark.parametrize("S", [1, 4])
+def test_cuda_k3_matches_plain(cuda, S, block_pages, cover):
+    planes, q, words, local = _masked_inputs(S + 3, S, cover=cover)
+    before = bfa.masked_launches
+    s, c = bfa.sharded_batched_filter_agg_masked(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        words.to(cuda), local.to(cuda), block_pages=block_pages)
+    torch.cuda.synchronize()
+    assert bfa.masked_launches == before + 1
+    ps, pc = bfa.sharded_batched_filter_agg_masked_plain(*planes, *q, words,
+                                                         local)
+    assert torch.equal(s.cpu(), ps) and torch.equal(c.cpu(), pc)
+    if cover == "full":  # every tile returns before loading a row
+        assert not c.any() and not s.any()
+
+
+def test_cuda_k3_prefix_equals_k1(cuda):
+    planes, q, words, local = _masked_inputs(5, 1, cover="prefix")
+    local[0] = planes[0].shape[1]
+    s3, c3 = bfa.sharded_batched_filter_agg_masked(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        words.to(cuda), local.to(cuda))
+    starts = torch.full((q[0].shape[0],), 100, dtype=torch.int32)
+    s1, c1 = bfa.batched_filter_agg(*[x[0].to(cuda) for x in planes],
+                                    *[x.to(cuda) for x in q],
+                                    starts.to(cuda))
+    assert torch.equal(s3, s1) and torch.equal(c3, c1)
+
+
+def test_cuda_k3_rejects_short_coverage_words(cuda):
+    planes, q, words, local = _masked_inputs(6, 2)
+    before = bfa.masked_launches
+    with pytest.raises(ValueError, match="W \\* 32 >= n_pages"):
+        bfa.sharded_batched_filter_agg_masked(
+            *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+            words[:, :-1].to(cuda), local.to(cuda))
+    assert bfa.masked_launches == before
