@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # one burst of phases 3 and 5,
-                                     # tables in build/profile/
+                                     # one burst of phases 3, 5, 7(a)
+                                     # and 7(c), tables in
+                                     # build/profile/
 
 Phases, each asserted (any failure exits non-zero):
 
 1. Device: the card's name and power limit; build the CUDA kernels
-   (K1, K2, K3) from ``src/repro_torch/kernels/csrc`` with nvcc for
-   sm_90a.
+   (K1, K2, K3, K4) from ``src/repro_torch/kernels/csrc`` with nvcc
+   for sm_90a.
 2. Kernels against their plain PyTorch versions on the card at the
    paper's table size (58,594 pages x 256 rows, columns read in place
    out of a 21-attribute table, MVCC gaps, values that wrap int32),
@@ -43,9 +44,29 @@ Phases, each asserted (any failure exits non-zero):
    that is not a prefix; K3's launches equal the masked kernel groups;
    crack adoption charged populate units; a numpy scan of the final
    table equals the K3 twin's answers.
+6. K4 (the sharded scan) against its plain version: phase 2's table
+   sharded round-robin over S = 4 (14,649 / 14,649 / 14,648 / 14,648
+   local pages), B in {1, 8, 16, 32}, with zero local starts, the
+   global stitch 19,531 mapped to local pages, divergent per-shard
+   starts and starts past ``local_pages``; then the reference
+   benchmark's 36/4/4/4 skewed layout at the paper's scale (29,295 +
+   3 x 3,255 pages).  Bit-equal everywhere; zero starts and the mapped
+   global stitch equal K1 on the unsharded table, one shard equals K1,
+   starts past the real pages return zeros.
+7. The sharded main path at 10M rows, a K4 twin against a plain twin:
+   (a) phase 3's workload on ``Database(..., num_shards=4)`` -- every
+   stats field, the tuning work and the clock equal phase 3's, burst
+   for burst, and two scans per burst equal a numpy scan; (b) the
+   skewed table adopted as is, with per-shard builds
+   (``vap_build_step(shard=)``), so the scans plan ``hybrid_ps`` and K4
+   takes per-shard local starts; every scan equals numpy; (c) phase 5's
+   crack-on-scan loop on 4 round-robin shards at reduced depth (K3 at
+   S = 4).  K4 launches once per sharded table / hybrid group, K3 once
+   per masked group; K1 and K2 never.
 
-Prints one JSON line per measurement, then the card line, the kernels
-line and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero
+Prints one JSON line per measurement (with each phase's peak device
+memory), then the card line, the kernels line and, last, ``{"ok":
+true, "device": {...}}``.  Exits non-zero
 without a result when no CUDA device is present or the port's sources
 are missing.
 """
@@ -78,6 +99,11 @@ N_MASKED_BURSTS = 12
 MASKED_BURST = 16
 MASKED_PHASE_LEN = 48  # scans per hot window (3 bursts)
 MASKED_PAGES_PER_CYCLE = 64
+# Phase 7: the skewed 36/4/4/4 layout at the paper's scale (whole pages
+# of 256 rows: 9,999,360 rows), and the depth of the sharded loops.
+SKEW_PAGES = (29_295, 3_255, 3_255, 3_255)
+SKEW_BURSTS = 4
+SHARDED_MASKED_BURSTS = 6
 
 
 def emit(obj) -> None:
@@ -337,45 +363,242 @@ def phase_masked_kernel(torch, bfa, tab):
     return timed
 
 
-def numpy_scan(table, q, ts):
-    """Brute-force SUM/COUNT of one scan query over a host copy."""
+def sharded_bound(local_pages, page_size, starts):
+    """(bytes, bound_ms, bound_by) of K4 with the (S, B) local
+    ``starts``: each shard's five planes read once over its real pages
+    at or past its smallest local start, the per-query operands, the
+    start table and ``local_pages`` read once, outputs written once;
+    each query does its work on its own rows only."""
+    S, B = starts.shape
+
+    def rows(s, p):
+        return max(local_pages[s] - max(int(p), 0), 0) * page_size
+
+    read = sum(rows(s, starts[s].min()) for s in range(S))
+    nbytes = read * 4 * 5 + B * 5 * 4 + S * B * 4 + S * 4 + B * 2 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    work = sum(rows(s, starts[s, q]) for s in range(S) for q in range(B))
+    t_ops = work * OPS_PER_ROW_QUERY / INT32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes, max(t_bytes, t_ops), by
+
+
+def k4_case(torch, bfa, planes, q, starts, local, label, timed):
+    """Launch K4 once, hold it to its plain version (bit-equal), and
+    time both when ``timed``; returns the measurement row."""
+    before = bfa.sharded_launches
+    ks, kc = bfa.sharded_batched_filter_agg(*planes, *q, starts, local)
+    torch.cuda.synchronize()
+    assert bfa.sharded_launches == before + 1
+    ps, pc = bfa.sharded_batched_filter_agg_plain(*planes, *q, starts,
+                                                  local)
+    err = int(max((ks.long() - ps.long()).abs().max(),
+                  (kc.long() - pc.long()).abs().max()))
+    assert torch.equal(ks, ps) and torch.equal(kc, pc), (label, err)
+    lp = local.tolist()
+    nbytes, bound, by = sharded_bound(lp, planes[0].shape[2],
+                                      starts.cpu().numpy())
+    row = dict(phase="sharded_kernel", kernel="K4", B=starts.shape[1],
+               local_pages=lp, max_abs_err=err, equal=True,
+               bytes_moved=nbytes, bound_ms=bound, bound_by=by, **label)
+    n0 = bfa.sharded_launches
+    row["kernel_ms"] = cuda_ms(lambda: bfa.sharded_batched_filter_agg(
+        *planes, *q, starts, local))
+    row["launches"] = bfa.sharded_launches - n0
+    if timed:
+        row["plain_ms"] = cuda_ms(
+            lambda: bfa.sharded_batched_filter_agg_plain(
+                *planes, *q, starts, local), n=3, warm=1)
+    emit(row)
+    return row, (ks, kc)
+
+
+def phase_sharded_kernel(torch, bfa, tab):
+    """Phase 6: K4 against its plain version at full size -- phase 2's
+    table sharded round-robin over S = 4 (local pages 14,649 / 14,649 /
+    14,648 / 14,648) for B in {1, 8, 16, 32} under four kinds of local
+    starts, the reference benchmark's 36/4/4/4 skewed layout at the
+    paper's scale, and the identities S = 1 == K1 and zero starts == a
+    full scan."""
     import numpy as np
 
-    cols = {a: table.data[:, :, a].cpu().numpy()
-            for a in set(q.attrs) | {q.agg_attr}}
-    b = table.begin_ts.cpu().numpy()
-    e = table.end_ts.cpu().numpy()
-    mask = (b <= ts) & (ts < e)
+    from repro_torch.core.table import Table, shard_table, stack_shards
+
+    data, begin, end, _ = tab
+    dev = data.device
+    n_pages, psz, _ = data.shape
+    rng = np.random.default_rng(16)
+    flat = (data[..., 3], data[..., 1], data[..., 2], begin, end)
+    st = shard_table(Table(data, begin, end, n_pages * psz), 4)
+    S = st.n_shards
+    local = st.local_pages_tensor()
+    planes = (st.data[..., 3], st.data[..., 1], st.data[..., 2],
+              st.begin_ts, st.end_ts)
+    stitch = n_pages // 3  # 19,531: the prefix of phase 4
+    sid = np.arange(S)[:, None]
+    lp = np.array(st.local_pages)[:, None]
+    rows, errs, headline = [], [], None
+    for B in (1, 8, 16, 32):
+        lo0 = rng.integers(-(2**31), 2**30, size=B)
+        q = [lo0, lo0 + 2**30, np.full(B, -(2**31)), np.full(B, 2**31 - 1),
+             rng.integers(0, 200, size=B)]
+        qt = [torch.tensor(x.astype(np.int32), device=dev) for x in q]
+        kinds = {
+            "zero": np.zeros((S, B)),
+            "global_stitch": np.maximum(
+                (stitch - sid + S - 1) // S, 0).repeat(B, 1),
+            "divergent": rng.integers(0, lp, size=(S, B)),
+            "past_local_pages": lp + rng.integers(0, 50, size=(S, B)),
+        }
+        for kind, starts in kinds.items():
+            starts = torch.tensor(starts.astype(np.int32), device=dev)
+            row, (ks, kc) = k4_case(torch, bfa, planes, qt, starts, local,
+                                    dict(layout="round_robin", S=S,
+                                         starts=kind), timed=B == 8)
+            rows.append(row)
+            errs.append(row["max_abs_err"])
+            if kind in ("zero", "global_stitch"):  # the unsharded table
+                g = torch.full((B,), 0 if kind == "zero" else stitch,
+                               dtype=torch.int32, device=dev)
+                s1, c1 = bfa.batched_filter_agg(*flat, *qt, g)
+                assert torch.equal(ks, s1) and torch.equal(kc, c1), kind
+            if kind == "past_local_pages":
+                assert not kc.any() and not ks.any(), B
+            if B == 8 and kind == "global_stitch":
+                headline = row
+        # S = 1 is K1: one shard of the unsharded planes, mixed starts.
+        one = torch.tensor(rng.integers(0, n_pages + 100, size=(1, B)).astype(
+            np.int32), device=dev)
+        k4 = bfa.sharded_batched_filter_agg(
+            *[x[None] for x in flat], *qt, one,
+            torch.tensor([n_pages], dtype=torch.int32, device=dev))
+        k1 = bfa.batched_filter_agg(*flat, *qt, one[0])
+        assert all(torch.equal(a, b) for a, b in zip(k4, k1)), B
+    del st, planes
+    torch.cuda.empty_cache()
+    # The reference's 36/4/4/4 layout (benchmarks/shard_tuning.py) at the
+    # paper's scale, cut to whole pages: 29,295 + 3 x 3,255 pages.
+    counts = list(SKEW_PAGES)
+    edges = np.cumsum([0] + counts)
+    skew = stack_shards([Table(data[a:b], begin[a:b], end[a:b], 0)
+                         for a, b in zip(edges[:-1], edges[1:])], 0)
+    splanes = (skew.data[..., 3], skew.data[..., 1], skew.data[..., 2],
+               skew.begin_ts, skew.end_ts)
+    slocal = skew.local_pages_tensor()
+    B = 8
+    lo0 = rng.integers(-(2**31), 2**30, size=B)
+    q = [lo0, lo0 + 2**30, np.full(B, -(2**31)), np.full(B, 2**31 - 1),
+         rng.integers(0, 200, size=B)]
+    qt = [torch.tensor(x.astype(np.int32), device=dev) for x in q]
+    head = [x[: edges[-1]] for x in flat]
+    cl = np.array(counts)[:, None]
+    for kind, starts in (("zero", np.zeros((4, B))),
+                         ("divergent", rng.integers(0, cl, size=(4, B)))):
+        starts = torch.tensor(starts.astype(np.int32), device=dev)
+        row, (ks, kc) = k4_case(torch, bfa, splanes, qt, starts, slocal,
+                                dict(layout="skewed_36_4_4_4", S=4,
+                                     starts=kind), timed=True)
+        errs.append(row["max_abs_err"])
+        if kind == "zero":  # padding tiles skipped, padding invisible
+            s1, c1 = bfa.batched_filter_agg(
+                *head, *qt, torch.zeros(B, dtype=torch.int32, device=dev))
+            assert torch.equal(ks, s1) and torch.equal(kc, c1)
+    del skew, splanes
+    torch.cuda.empty_cache()
+    headline["max_abs_err"] = max(errs)
+    return headline
+
+
+def numpy_scan(table, q, ts):
+    """Brute-force SUM/COUNT of one scan query over a host copy of a
+    ``Table`` or a ``ShardedTable`` (padding pages are invisible)."""
+    return numpy_answer(host_columns(table, q.attrs + (q.agg_attr,)), q, ts)
+
+
+def host_columns(table, attrs):
+    """Host copies of the columns ``attrs`` and the MVCC planes of a
+    ``Table`` or ``ShardedTable``, flattened to rows."""
+    out = {a: table.data[..., a].reshape(-1).cpu().numpy()
+           for a in set(attrs)}
+    out["begin"] = table.begin_ts.reshape(-1).cpu().numpy()
+    out["end"] = table.end_ts.reshape(-1).cpu().numpy()
+    return out
+
+
+def numpy_answer(cols, q, ts):
+    import numpy as np
+
+    mask = (cols["begin"] <= ts) & (ts < cols["end"])
     for a, lo, hi in zip(q.attrs, q.los, q.his):
         mask &= (cols[a] >= lo) & (cols[a] <= hi)
     s = int(cols[q.agg_attr][mask].astype(np.int64).sum())
     return (s + 2**31) % 2**32 - 2**31, int(mask.sum())
 
 
-def phase_main_path(torch, bfa, fa, dev, profile):
-    """Phase 3: the predictive-indexing loop at 10M rows on the card."""
-    from repro_torch.api import (Database, PredictiveTuner, QueryGen,
-                                 TunerConfig, make_tuner_db)
-    from repro_torch.core.table import Table
-    from repro_torch.kernels import ops
+def clone_table(t):
+    """A copy of a ``Table`` (or ``ShardedTable``) on its device."""
+    return t._replace(data=t.data.clone(), begin_ts=t.begin_ts.clone(),
+                      end_ts=t.end_ts.clone())
 
-    t0 = time.perf_counter()
-    tdb = make_tuner_db(n_rows=N_ROWS, page_size=PAGE_SIZE, device=dev)
-    src = tdb.tables["narrow"]
-    twin_tables = {"narrow": Table(src.data.clone(), src.begin_ts.clone(),
-                                   src.end_ts.clone(), src.n_rows)}
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    emit(dict(phase="load", rows=N_ROWS, pages=src.n_pages,
-              page_size=PAGE_SIZE, attrs=src.n_attrs, seconds=load_s,
-              table_bytes=src.data.numel() * 4))
-    dbk, dbp = Database(dict(tdb.tables)), Database(twin_tables)
+
+FIELDS = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
+          "rows_modified", "populate_units", "shard_pages")
+
+
+def stats_key(s):
+    return tuple(getattr(s, f) for f in FIELDS)
+
+
+def twin_burst(torch, dbk, dbp, queries, burst):
+    """One burst through both twins, in turns (neither alone pays the
+    first use of an operator): the kernel twin with ``use_kernel``, its
+    twin on the plain path.  Every stats field but wall_s / tier must
+    agree and every kernel-twin scan must report the kernel tier.
+    Returns (kernel twin stats, kernel seconds, plain seconds)."""
+    order = ((dbk, True), (dbp, False))
+    if burst % 2:
+        order = order[::-1]
+    out, secs = {}, {}
+    for db, use_kernel in order:
+        t1 = time.perf_counter()
+        out[use_kernel] = db.execute_batch(queries, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        secs[use_kernel] = time.perf_counter() - t1
+    for i, (a, b) in enumerate(zip(out[True], out[False])):
+        assert stats_key(a) == stats_key(b), (burst, i, a, b)
+        if queries[i].kind == "scan":
+            assert a.tier == "kernel", (burst, i, a.tier)
+    assert dbk.clock_ms == dbp.clock_ms
+    return out[True], secs[True], secs[False]
+
+
+def kernel_groups(db, scans, paths):
+    """Plan groups of a burst (as ``execute_batch`` forms them) whose
+    path is in ``paths``; returns (count, plans)."""
+    groups = {}
+    for q in scans:
+        plan = db.planner.plan_scan(q)
+        groups[(tuple(q.attrs), q.agg_attr) + plan.group_key] = plan
+    return sum(p.path in paths for p in groups.values()), list(
+        groups.values())
+
+
+def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False):
+    """The phase-3 workload on two twin databases: N_BURSTS bursts of
+    BURST_LOW_S LOW-S (attr 3) and BURST_MOD_S MOD-S (attrs 1, 2) scans
+    at 1% selectivity, then one LOW-U and one 16-row INS, then one
+    tuning cycle per twin.  ``count_launches`` reads the launch counter
+    of the kernel the table and hybrid groups take; it must grow by one
+    per such group.  With ``oracle`` two scans of every burst are also
+    held to a numpy scan of the table as the burst saw it.  Returns the
+    per-burst record of every stats field, the timings and counts."""
+    from repro_torch.api import PredictiveTuner, QueryGen, TunerConfig
+
     cfg = dict(storage_budget_bytes=200e6, pages_per_cycle=PAGES_PER_CYCLE,
                max_build_pages_per_cycle=PAGES_PER_CYCLE)
     tuners = (PredictiveTuner(dbk, TunerConfig(**cfg)),
               PredictiveTuner(dbp, TunerConfig(**cfg)))
     gen = QueryGen(tdb, selectivity=0.01, seed=11)
-
     starts = []  # per kernel dispatch: max start_page of the group
     orig = dbk.engine.scan_batch
 
@@ -385,67 +608,77 @@ def phase_main_path(torch, bfa, fa, dev, profile):
         return r
 
     dbk.engine.scan_batch = recording_scan_batch
-    fields = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
-              "rows_modified", "populate_units", "shard_pages")
-    bfa.launches = 0
-    fa.launches = 0  # counts from here on are the main path's
-    expected_k1, hybrid_groups = 0, 0
-    tk, tp = [], []  # per-burst wall seconds of each twin
-    torch.cuda.reset_peak_memory_stats()
+    launches0 = count_launches()
+    expected, paths, record, tk, tp, checked = 0, [], [], [], [], 0
     for burst in range(N_BURSTS):
         scans = [gen.low_s(attr=3) for _ in range(BURST_LOW_S)] + [
             gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)]
         muts = [gen.low_u(), gen.ins(n=16)]
-        groups = {}
-        for q in scans:
-            plan = dbk.planner.plan_scan(q)
-            groups[(tuple(q.attrs), q.agg_attr) + plan.group_key] = plan
-        expected_k1 += sum(p.path in ("table", "hybrid")
-                           for p in groups.values())
-        hybrid_groups += sum(p.path == "hybrid" for p in groups.values())
+        n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
+                                              "hybrid_ps"))
+        expected += n
+        paths += [p.path for p in plans]
         n_before = len(starts)
-        # The twins take turns going first, so neither alone pays the
-        # first use of an operator.
-        order = ((dbk, True), (dbp, False))
-        if burst % 2:
-            order = order[::-1]
-        for db, use_kernel in order:
-            t1 = time.perf_counter()
-            out = db.execute_batch(scans, use_kernel=use_kernel)
-            torch.cuda.synchronize()
-            (tk if use_kernel else tp).append(time.perf_counter() - t1)
-            if use_kernel:
-                sk = out
-            else:
-                sp = out
-        for i, (a, b) in enumerate(zip(sk, sp)):
-            ka = tuple(getattr(a, f) for f in fields)
-            kb = tuple(getattr(b, f) for f in fields)
-            assert ka == kb, (burst, i, ka, kb)
-            assert a.tier == "kernel", (burst, i, a.tier)
-        mk = dbk.execute_batch(muts, use_kernel=True)
-        mp = dbp.execute_batch(muts, use_kernel=False)
-        for a, b in zip(mk, mp):
-            assert tuple(getattr(a, f) for f in fields) == tuple(
-                getattr(b, f) for f in fields)
-        assert dbk.clock_ms == dbp.clock_ms
+        if oracle:
+            ts = dbk.clock_ms_i32()
+            cols = host_columns(dbk.tables["narrow"], (1, 2, 3))
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
+        tk.append(k_s)
+        tp.append(p_s)
+        if oracle:
+            for i in (0, BURST_LOW_S):
+                assert (sk[i].agg_sum, sk[i].count) == numpy_answer(
+                    cols, scans[i], ts), (tag, burst, i)
+                checked += 1
+        mk, _, _ = twin_burst(torch, dbk, dbp, muts, burst)
         wk = tuners[0].tuning_cycle()
         wp = tuners[1].tuning_cycle()
         assert wk == wp and sorted(dbk.indexes) == sorted(dbp.indexes)
+        record.append(([stats_key(s) for s in sk + mk], wk, dbk.clock_ms))
         built = {n: b.vap.built_pages for n, b in dbk.indexes.items()}
-        emit(dict(phase="burst", burst=burst, kernel_s=tk[-1],
-                  plain_s=tp[-1], used_index=sum(s.used_index for s in sk),
+        emit(dict(phase=f"{tag}_burst", burst=burst, kernel_s=k_s,
+                  plain_s=p_s, used_index=sum(s.used_index for s in sk),
                   max_start_page=max(
                       [int(x) for x in starts[n_before:]], default=0),
                   build_work=wk, built_pages=built))
+    launches = count_launches() - launches0
+    assert launches == expected > 0, (tag, launches, expected)
+    assert "hybrid" in paths or "hybrid_ps" in paths, paths
+    stitch = max(int(x) for x in starts)
+    assert stitch > 0, "no hybrid stitch past page 0"
+    return dict(record=record, tk=tk, tp=tp, launches=launches,
+                paths=paths, stitch=stitch, gen=gen, numpy_checks=checked)
+
+
+def phase_main_path(torch, bfa, fa, dev, profile):
+    """Phase 3: the predictive-indexing loop at 10M rows on the card."""
+    from repro_torch.api import Database, TunerDB, make_tuner_db
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    tdb = make_tuner_db(n_rows=N_ROWS, page_size=PAGE_SIZE, device=dev)
+    src = tdb.tables["narrow"]
+    twin_tables = {"narrow": clone_table(src)}
+    # Phase 7 starts from the same table: keep an untouched copy (the
+    # numpy generator takes most of a minute for 10M Zipf rows).
+    initial = TunerDB(tables={"narrow": clone_table(src)},
+                      quantiles=tdb.quantiles, n_rows=N_ROWS, rng=None)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    emit(dict(phase="load", rows=N_ROWS, pages=src.n_pages,
+              page_size=PAGE_SIZE, attrs=src.n_attrs, seconds=load_s,
+              table_bytes=src.data.numel() * 4))
+    dbk, dbp = Database(dict(tdb.tables)), Database(twin_tables)
+    bfa.launches = 0
+    fa.launches = 0  # counts from here on are the main path's
+    torch.cuda.reset_peak_memory_stats()
+    run = prefix_loop(torch, dbk, dbp, tdb, "main", lambda: bfa.launches)
     # The main path's counts.  The engine launches K2 nowhere (nor does
     # the reference's); K2 is held to K1 and numpy below, off the count.
     k1_launches, k2_launches = bfa.launches, fa.launches
     peak = torch.cuda.max_memory_allocated()
-    assert k1_launches == expected_k1 > 0, (k1_launches, expected_k1)
-    assert hybrid_groups > 0
-    stitch = max(int(x) for x in starts)
-    assert stitch > 0, "no hybrid stitch past page 0"
+    assert k1_launches == run["launches"]
+    stitch, gen = run["stitch"], run["gen"]
     # The repo's own oracle: a brute-force scan of the final table, which
     # K1 (through the engine) and K2 (through its adapters) must equal.
     table = dbk.tables["narrow"]
@@ -463,14 +696,16 @@ def phase_main_path(torch, bfa, fa, dev, profile):
             start_pages=[stitch])
         assert (int(s2), int(c2)) == (int(s1[0]), int(c1[0]))
     assert fa.launches == k2_launches + 4  # the adapters reached K2
+    tk, tp = run["tk"], run["tp"]
     emit(dict(phase="main_path", bursts=N_BURSTS,
-              scans_per_burst=len(scans),
+              scans_per_burst=BURST_LOW_S + BURST_MOD_S,
               kernel_bursts_per_s=N_BURSTS / sum(tk),
               plain_bursts_per_s=N_BURSTS / sum(tp),
               kernel_median_burst_ms=statistics.median(tk) * 1e3,
               plain_median_burst_ms=statistics.median(tp) * 1e3,
               kernel_s=sum(tk), plain_s=sum(tp), k1_launches=k1_launches,
-              k2_launches=k2_launches, hybrid_groups=hybrid_groups,
+              k2_launches=k2_launches,
+              hybrid_groups=run["paths"].count("hybrid"),
               indexes=sorted(dbk.indexes), peak_bytes=peak))
     emit(dict(phase="scale", reduced=[],
               note=f"{N_ROWS} rows x {src.n_attrs} attrs, page_size "
@@ -480,7 +715,7 @@ def phase_main_path(torch, bfa, fa, dev, profile):
         profile_bursts(torch, dbk, dbp, "main", lambda: [
             gen.low_s(attr=3) for _ in range(BURST_LOW_S)] + [
             gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)])
-    return k1_launches, k2_launches
+    return k1_launches, k2_launches, run["record"], initial
 
 
 def make_clustered_table(n_rows, page_size, n_attrs=21, headroom=1.5,
@@ -529,24 +764,20 @@ def make_shifting_workload(n_rows, total, phase_len, width=512, seed=13):
     return items
 
 
-def phase_masked_path(torch, bfa, fa, dev, profile):
-    """Phase 5: the masked main path (coverage bitmaps, crack-on-scan,
-    hot-range quanta) at 10M rows on the card."""
+def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
+    """The phase-5 workload on two twin databases with crack_on_scan
+    on: ``n_bursts`` bursts of MASKED_BURST scans of the shifting
+    hot-range workload, one decide / apply tuning cycle per burst
+    (hot-range page lists).  Every stats field, the clock, the quanta
+    and the coverage bits agree; K3 launches once per masked group and
+    the table kernel (``table_launches``) once per table / hybrid
+    group; a numpy scan of the final table equals the kernel twin's
+    answers.  Returns the counts and timings."""
     import numpy as np
 
-    from repro_torch.api import Database, PredictiveTuner, TunerConfig
+    from repro_torch.api import PredictiveTuner, TunerConfig
     from repro_torch.core import build_service
-    from repro_torch.core.table import Table
 
-    t0 = time.perf_counter()
-    src = make_clustered_table(N_ROWS, PAGE_SIZE, device=dev)
-    twin = Table(src.data.clone(), src.begin_ts.clone(), src.end_ts.clone(),
-                 src.n_rows)
-    torch.cuda.synchronize()
-    emit(dict(phase="load_clustered", rows=N_ROWS, pages=src.n_pages,
-              page_size=PAGE_SIZE, attrs=src.n_attrs,
-              seconds=time.perf_counter() - t0))
-    dbk, dbp = Database({"narrow": src}), Database({"narrow": twin})
     cfg = dict(storage_budget_bytes=200e6,
                pages_per_cycle=MASKED_PAGES_PER_CYCLE,
                max_build_pages_per_cycle=MASKED_PAGES_PER_CYCLE,
@@ -555,43 +786,23 @@ def phase_masked_path(torch, bfa, fa, dev, profile):
     for db in (dbk, dbp):
         db.crack_on_scan = True
         tuners.append(PredictiveTuner(db, TunerConfig(**cfg)))
-    wl = make_shifting_workload(N_ROWS, N_MASKED_BURSTS * MASKED_BURST,
+    wl = make_shifting_workload(N_ROWS, n_bursts * MASKED_BURST,
                                 MASKED_PHASE_LEN)
-    fields = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
-              "rows_modified", "populate_units", "shard_pages")
-    bfa.launches = bfa.masked_launches = fa.launches = 0
-    masked_groups, kernel_groups, non_prefix, populate = 0, 0, 0, 0.0
+    k3_0, table_0 = bfa.masked_launches, table_launches()
+    masked_groups, table_groups, non_prefix, populate = 0, 0, 0, 0.0
     tk, tp = [], []
-    for burst in range(N_MASKED_BURSTS):
+    for burst in range(n_bursts):
         scans = wl[burst * MASKED_BURST:(burst + 1) * MASKED_BURST]
-        groups = {}
-        for q in scans:
-            plan = dbk.planner.plan_scan(q)
-            groups[(tuple(q.attrs), q.agg_attr) + plan.group_key] = plan
-        masked = [p for p in groups.values() if p.path == "hybrid_masked"]
+        n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
+                                              "hybrid_ps"))
+        table_groups += n
+        masked = [p for p in plans if p.path == "hybrid_masked"]
         masked_groups += len(masked)
-        kernel_groups += sum(p.path in ("table", "hybrid")
-                             for p in groups.values())
         non_prefix += any(not p.index.coverage.is_prefix() for p in masked)
-        order = ((dbk, True), (dbp, False))
-        if burst % 2:
-            order = order[::-1]
-        for db, use_kernel in order:
-            t1 = time.perf_counter()
-            out = db.execute_batch(scans, use_kernel=use_kernel)
-            torch.cuda.synchronize()
-            (tk if use_kernel else tp).append(time.perf_counter() - t1)
-            if use_kernel:
-                sk = out
-            else:
-                sp = out
-        for i, (a, b) in enumerate(zip(sk, sp)):
-            ka = tuple(getattr(a, f) for f in fields)
-            kb = tuple(getattr(b, f) for f in fields)
-            assert ka == kb, (burst, i, ka, kb)
-            assert a.tier == "kernel", (burst, i, a.tier)
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
+        tk.append(k_s)
+        tp.append(p_s)
         populate += sum(s.populate_units for s in sk)
-        assert dbk.clock_ms == dbp.clock_ms
         pk, pp = tuners[0].decide(), tuners[1].decide()
         qk = [(q.index_name, q.pages, q.page_list, q.utility)
               for q in pk.quanta]
@@ -603,19 +814,18 @@ def phase_masked_path(torch, bfa, fa, dev, profile):
         for name, b in dbk.indexes.items():
             assert np.array_equal(b.coverage.built,
                                   dbp.indexes[name].coverage.built)
-        emit(dict(phase="masked_burst", burst=burst, kernel_s=tk[-1],
-                  plain_s=tp[-1], paths=sorted(p.path
-                                               for p in groups.values()),
+        emit(dict(phase=f"{tag}_burst", burst=burst, kernel_s=k_s,
+                  plain_s=p_s, paths=sorted(p.path for p in plans),
                   populate_units=sum(s.populate_units for s in sk),
                   page_list_pages=sum(len(q.page_list) for q in pk.quanta),
                   build_work=wk,
                   covered={n: b.coverage.count()
                            for n, b in dbk.indexes.items()}))
-    # The masked path's counts, read before the checks below.
-    k3_launches, k1_launches = bfa.masked_launches, bfa.launches
+    # The path's counts, read before the checks below.
+    k3_launches = bfa.masked_launches - k3_0
+    t_launches = table_launches() - table_0
     assert k3_launches == masked_groups > 0, (k3_launches, masked_groups)
-    assert k1_launches == kernel_groups, (k1_launches, kernel_groups)
-    assert fa.launches == 0
+    assert t_launches == table_groups, (t_launches, table_groups)
     assert non_prefix > 0, "no burst planned a bitmap that is not a prefix"
     assert populate > 0, "crack adoption charged no populate units"
     bi = dbk.indexes["narrow:1"]
@@ -630,27 +840,220 @@ def phase_masked_path(torch, bfa, fa, dev, profile):
         assert (got.agg_sum, got.count) == numpy_scan(table, q, ts), q
         masked_checks += plan.path == "hybrid_masked"
     assert masked_checks > 0
+    return dict(tk=tk, tp=tp, k3_launches=k3_launches,
+                table_launches=t_launches, masked_groups=masked_groups,
+                non_prefix_bursts=non_prefix, populate_units=populate,
+                final_covered_pages=bi.coverage.count(),
+                numpy_checks=len(checks), numpy_checks_masked=masked_checks)
+
+
+def clustered_twins(torch, dev, num_shards=1):
+    """Two databases over one clustered 10M-row table (its copy)."""
+    from repro_torch.api import Database
+
+    t0 = time.perf_counter()
+    src = make_clustered_table(N_ROWS, PAGE_SIZE, device=dev)
+    twin = clone_table(src)
+    dbs = (Database({"narrow": src}, num_shards=num_shards),
+           Database({"narrow": twin}, num_shards=num_shards))
+    del src, twin
+    torch.cuda.synchronize()
+    emit(dict(phase="load_clustered", rows=N_ROWS, shards=num_shards,
+              pages=dbs[0].tables["narrow"].n_pages, page_size=PAGE_SIZE,
+              seconds=time.perf_counter() - t0))
+    return dbs
+
+
+def phase_masked_path(torch, bfa, fa, dev, profile):
+    """Phase 5: the masked main path (coverage bitmaps, crack-on-scan,
+    hot-range quanta) at 10M rows on the card."""
+    dbk, dbp = clustered_twins(torch, dev)
+    bfa.launches = bfa.masked_launches = fa.launches = 0
+    run = masked_loop(torch, bfa, dbk, dbp, N_MASKED_BURSTS, "masked",
+                      lambda: bfa.launches)
+    assert fa.launches == 0
+    tk, tp = run.pop("tk"), run.pop("tp")
     emit(dict(phase="masked_path", bursts=N_MASKED_BURSTS,
               scans_per_burst=MASKED_BURST,
               kernel_median_burst_ms=statistics.median(tk) * 1e3,
               plain_median_burst_ms=statistics.median(tp) * 1e3,
-              kernel_s=sum(tk), plain_s=sum(tp), k3_launches=k3_launches,
-              masked_groups=masked_groups, k1_launches=k1_launches,
-              non_prefix_bursts=non_prefix, populate_units=populate,
-              final_covered_pages=bi.coverage.count(),
-              full_pages=N_ROWS // PAGE_SIZE, numpy_checks=len(checks),
-              numpy_checks_masked=masked_checks))
+              kernel_s=sum(tk), plain_s=sum(tp),
+              k1_launches=run.pop("table_launches"),
+              full_pages=N_ROWS // PAGE_SIZE, **run))
     emit(dict(phase="scale_masked",
               reduced=[f"depth: {N_MASKED_BURSTS} bursts of {MASKED_BURST} "
                        f"scans (the reference benchmark runs 240 scans)"],
-              note=f"{N_ROWS} rows x {src.n_attrs} attrs, page_size "
-                   f"{PAGE_SIZE}, {src.n_pages} pages: the paper's size"))
+              note=f"{N_ROWS} rows x 21 attrs, page_size {PAGE_SIZE}, "
+                   f"{dbk.tables['narrow'].n_pages} pages: the paper's "
+                   f"size"))
     if profile:  # the workload's next burst, after the counted run
         extra = make_shifting_workload(
             N_ROWS, (N_MASKED_BURSTS + 1) * MASKED_BURST,
             MASKED_PHASE_LEN)[-MASKED_BURST:]
         profile_bursts(torch, dbk, dbp, "masked", lambda: extra)
-    return k3_launches
+    return run["k3_launches"]
+
+
+def skewed_tuner_db(initial, page_counts):
+    """The reference's ``benchmarks/shard_tuning.py:make_skewed_db``
+    (one hot shard, cold shards of ``page_counts`` pages, every shard
+    exactly full) at any size, cut from the TUNER table ``initial``:
+    both draw the row id plus ``zipf_attrs(default_rng(7), n, 20)``, and
+    the numpy generator fills the Zipf array in row order, so the
+    skewed table's rows are the first rows of the TUNER table (checked
+    on the first 1,000 rows)."""
+    import numpy as np
+
+    from repro_torch.bench_db.schema import TunerDB, zipf_attrs
+    from repro_torch.core.table import Table, stack_shards
+
+    t = initial.tables["narrow"]
+    psz = t.page_size
+    head = zipf_attrs(np.random.default_rng(7), 1_000, t.n_attrs - 1)
+    assert np.array_equal(t.data.view(-1, t.n_attrs)[:1_000, 1:].cpu()
+                          .numpy(), head)
+    edges = np.cumsum([0] + list(page_counts))
+    n_rows = int(edges[-1]) * psz
+    table = stack_shards([Table(t.data[a:b], t.begin_ts[a:b],
+                                t.end_ts[a:b], (b - a) * psz)
+                          for a, b in zip(edges[:-1], edges[1:])], n_rows)
+    col = t.data.view(-1, t.n_attrs)[:n_rows, 1].cpu().numpy()
+    return TunerDB(tables={"narrow": table}, quantiles={"narrow":
+                                                        np.sort(col)},
+                   n_rows=n_rows, rng=None)
+
+
+def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
+    """Phase 7: the sharded main path at 10M rows, a K4 twin against a
+    plain twin: (a) phase 3's workload on 4 round-robin shards, equal
+    to phase 3 burst for burst; (b) the 36/4/4/4 skewed pre-sharded
+    table with per-shard builds (``hybrid_ps``); (c) phase 5's
+    crack-on-scan loop on 4 shards (K3 at S = 4), at reduced depth."""
+    from repro_torch.api import Database, IndexDescriptor, QueryGen
+
+    dev = initial.tables["narrow"].device
+    bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
+    fa.launches = 0  # counts from here on are the sharded path's
+    out = {}
+    # (a) Phase 3's workload on Database(..., num_shards=4).
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    src = initial.tables["narrow"]
+    dbk = Database({"narrow": clone_table(src)}, num_shards=4)
+    dbp = Database({"narrow": clone_table(src)}, num_shards=4)
+    torch.cuda.synchronize()
+    st = dbk.tables["narrow"]
+    emit(dict(phase="load_sharded", rows=N_ROWS, shards=st.n_shards,
+              local_pages=list(st.local_pages),
+              seconds=time.perf_counter() - t0))
+    run = prefix_loop(torch, dbk, dbp, initial, "sharded",
+                      lambda: bfa.sharded_launches, oracle=True)
+    assert bfa.launches == 0 and fa.launches == 0  # K4 only, no K1 / K2
+    for burst, (a, b) in enumerate(zip(run["record"], record_main)):
+        assert a == b, ("sharded run differs from phase 3", burst)
+    assert len(run["record"]) == len(record_main)
+    tk, tp = run["tk"], run["tp"]
+    out["a"] = dict(k4_launches=run["launches"],
+                    kernel_median_burst_ms=statistics.median(tk) * 1e3,
+                    plain_median_burst_ms=statistics.median(tp) * 1e3,
+                    numpy_checks=run["numpy_checks"],
+                    peak_bytes=torch.cuda.max_memory_allocated())
+    emit(dict(phase="sharded_path", bursts=N_BURSTS, equal_to_phase3=True,
+              hybrid_groups=run["paths"].count("hybrid"), **out["a"]))
+    if profile:
+        gen = run["gen"]
+        profile_bursts(torch, dbk, dbp, "sharded", lambda: [
+            gen.low_s(attr=3) for _ in range(BURST_LOW_S)] + [
+            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)])
+    del dbk, dbp, st, run
+    torch.cuda.empty_cache()
+
+    # (b) The skewed layout, adopted as is; per-shard builds.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sdb = skewed_tuner_db(initial, SKEW_PAGES)
+    st = sdb.tables["narrow"]
+    twin = clone_table(st)
+    dbk, dbp = Database({"narrow": st}), Database({"narrow": twin})
+    torch.cuda.synchronize()
+    emit(dict(phase="load_skewed", rows=st.n_rows,
+              local_pages=list(st.local_pages),
+              seconds=time.perf_counter() - t0))
+    assert dbk.num_shards == 4 and not dbk.table_is_round_robin("narrow")
+    works = []
+    for db in (dbk, dbp):
+        bi = db.create_index(IndexDescriptor("narrow", (1,)), "vap")
+        works.append([db.vap_build_step(bi, pages=p, shard=s)
+                      for s, p in ((0, SKEW_PAGES[0] // 3), (2, 1_000))])
+    assert works[0] == works[1]
+    gen = QueryGen(sdb, selectivity=0.01, seed=21)
+    cols = host_columns(st, (1, 2, 3))  # a read-only workload
+    k4_0, expected, ps_groups, checked, tk, tp = (
+        bfa.sharded_launches, 0, 0, 0, [], [])
+    for burst in range(SKEW_BURSTS):
+        scans = [gen.low_s(attr=1) for _ in range(BURST_LOW_S)] + [
+            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)]
+        n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
+                                              "hybrid_ps"))
+        expected += n
+        ps_groups += sum(p.path == "hybrid_ps" for p in plans)
+        ts = dbk.clock_ms_i32()
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
+        tk.append(k_s)
+        tp.append(p_s)
+        for q, r in zip(scans, sk):
+            assert (r.agg_sum, r.count) == numpy_answer(cols, q, ts), q
+            checked += 1
+        for db in (dbk, dbp):  # one more per-shard quantum per burst
+            db.vap_build_step(db.indexes["narrow:1"], pages=2_000,
+                              shard=burst % 4)
+        emit(dict(phase="skewed_burst", burst=burst, kernel_s=k_s,
+                  plain_s=p_s, paths=sorted(p.path for p in plans),
+                  used_index=sum(s.used_index for s in sk)))
+    k4_b = bfa.sharded_launches - k4_0
+    assert k4_b == expected > 0 and ps_groups > 0, (k4_b, expected,
+                                                    ps_groups)
+    out["b"] = dict(k4_launches=k4_b, hybrid_ps_groups=ps_groups,
+                    kernel_median_burst_ms=statistics.median(tk) * 1e3,
+                    plain_median_burst_ms=statistics.median(tp) * 1e3,
+                    numpy_checks=checked,
+                    peak_bytes=torch.cuda.max_memory_allocated())
+    emit(dict(phase="skewed_path", bursts=SKEW_BURSTS, **out["b"]))
+    del dbk, dbp, st, twin, sdb, cols
+    torch.cuda.empty_cache()
+
+    # (c) Phase 5's crack-on-scan loop on 4 round-robin shards.
+    torch.cuda.reset_peak_memory_stats()
+    dbk, dbp = clustered_twins(torch, dev, num_shards=4)
+    run = masked_loop(torch, bfa, dbk, dbp, SHARDED_MASKED_BURSTS,
+                      "sharded_masked", lambda: bfa.sharded_launches)
+    tk, tp = run.pop("tk"), run.pop("tp")
+    out["c"] = dict(kernel_median_burst_ms=statistics.median(tk) * 1e3,
+                    plain_median_burst_ms=statistics.median(tp) * 1e3,
+                    k4_launches=run.pop("table_launches"),
+                    peak_bytes=torch.cuda.max_memory_allocated(), **run)
+    emit(dict(phase="sharded_masked_path", bursts=SHARDED_MASKED_BURSTS,
+              shards=4, **out["c"]))
+    if profile:
+        extra = make_shifting_workload(
+            N_ROWS, (SHARDED_MASKED_BURSTS + 1) * MASKED_BURST,
+            MASKED_PHASE_LEN)[-MASKED_BURST:]
+        profile_bursts(torch, dbk, dbp, "sharded_masked", lambda: extra)
+    del dbk, dbp
+    torch.cuda.empty_cache()
+    # Each loop's counts were read right after it: the numpy checks of
+    # (c) and the profiled bursts launch K3 / K4 again, off the count.
+    k4 = sum(out[p]["k4_launches"] for p in "abc")
+    assert bfa.launches == 0 and fa.launches == 0
+    emit(dict(phase="scale_sharded",
+              reduced=[f"(b) depth: {SKEW_BURSTS} bursts",
+                       f"(c) depth: {SHARDED_MASKED_BURSTS} bursts of "
+                       f"{MASKED_BURST} scans",
+                       "(b) 36/4/4/4 cut to whole pages of 256 rows: "
+                       "9,999,360 rows"],
+              note="(a) phase 3's 10M rows on 4 shards; (c) phase 5's "
+                   "clustered 10M rows on 4 shards"))
+    return k4, out["c"]["k3_launches"]
 
 
 def device_busy_us(prof):
@@ -736,16 +1139,33 @@ def main(argv) -> int:
     emit(dict(phase="device", card=card, name=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda))
 
+    profile = "--profile" in argv
+
+    def memory(phase):
+        """Peak device memory of the phase just run; resets the peak."""
+        emit(dict(phase="memory", of=phase,
+                  max_memory_allocated=torch.cuda.max_memory_allocated()))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
     tab = kernel_table(torch, dev)
     kr = phase_kernels(torch, bfa, fa, tab)
     k3 = phase_masked_kernel(torch, bfa, tab)
+    k4 = phase_sharded_kernel(torch, bfa, tab)
     del tab
-    torch.cuda.empty_cache()
-    k1_launches, k2_launches = phase_main_path(torch, bfa, fa, dev,
-                                               "--profile" in argv)
-    torch.cuda.empty_cache()
-    k3_launches = phase_masked_path(torch, bfa, fa, dev,
-                                    "--profile" in argv)
+    memory("kernels (phases 2, 4, 6)")
+    k1_launches, k2_launches, record, initial = phase_main_path(
+        torch, bfa, fa, dev, profile)
+    memory("main path (phase 3)")
+    k3_launches = phase_masked_path(torch, bfa, fa, dev, profile)
+    memory("masked path (phase 5)")
+    k4_launches, k3_sharded = phase_sharded_path(torch, bfa, fa, profile,
+                                                 record, initial)
+    del initial
+    memory("sharded path (phase 7)")
+    emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
+              K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
@@ -768,9 +1188,17 @@ def main(argv) -> int:
         dict(name="K3 sharded_batched_filter_agg_masked", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
-             launches=k3_launches, max_abs_err=k3["max_abs_err"],
+             launches=k3_launches + k3_sharded,
+             max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
+             library_ms=None),
+        dict(name="K4 sharded_batched_filter_agg", route="cuda",
+             source="src/repro_torch/kernels/csrc/filter_agg.cu",
+             replaces="src/repro/kernels/batched_filter_agg.py:308",
+             launches=k4_launches, max_abs_err=k4["max_abs_err"],
+             ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
+             bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=None),
     ]
     print(card, flush=True)

@@ -12,7 +12,18 @@ from repro_torch.bench_db.queries import QueryGen
 from repro_torch.bench_db.schema import TunerDB, make_tuner_db
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database, ExecStats, Query
-from repro_torch.core.index import PageCoverage, eligible_global_pages
+from repro_torch.core.index import (
+    PageCoverage,
+    ShardedIndex,
+    eligible_global_pages,
+)
+from repro_torch.core.table import (
+    ShardedTable,
+    Table,
+    shard_table,
+    stack_shards,
+    unshard_table,
+)
 from repro_torch.core.tuner import PredictiveTuner, TunerConfig
 
 __all__ = [
@@ -23,8 +34,14 @@ __all__ = [
     "PredictiveTuner",
     "Query",
     "QueryGen",
+    "ShardedIndex",
+    "ShardedTable",
+    "Table",
     "TunerConfig",
     "TunerDB",
     "eligible_global_pages",
     "make_tuner_db",
+    "shard_table",
+    "stack_shards",
+    "unshard_table",
 ]

@@ -12,16 +12,18 @@ ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass(frozen=True)
 class BuildQuantum:
-    """One interleavable slice of index-build work (the reference's
-    shard-targeted quanta come with the sharded slice)."""
+    """One interleavable slice of index-build work."""
 
     index_name: str
     pages: int
+    # None = advance the global prefix (round-robin over shards on
+    # sharded storage); an int targets that shard's local prefix.
+    shard: Optional[int] = None
     # Forecast utility of the owning index at decide time.
     utility: float = 0.0
     # Explicit global page ids for bitmap-mode (coverage) indexes:
@@ -47,5 +49,5 @@ def apply_quantum(db, quantum: BuildQuantum) -> float:
     bi = db.indexes.get(quantum.index_name)
     if bi is None or not bi.building or bi.scheme not in ("vap", "full"):
         return 0.0
-    return db.vap_build_step(bi, quantum.pages,
+    return db.vap_build_step(bi, quantum.pages, shard=quantum.shard,
                              page_list=quantum.page_list or None)

@@ -5,8 +5,12 @@
 side, done by the caller, so this module imports nothing of JAX) and
 returns the port's records on ``device``; ``coverage_from_reference``
 does the same for a ``PageCoverage`` bitmap (a host numpy record on
-both sides).  The tests use them to start both packages from one
-state.
+both sides, plain or sharded alike).  Sharded records arrive as the
+reference's nesting: a ``ShardedTable`` as ``(shards, n_rows)`` with
+one table 4-tuple per shard, a ``ShardedIndex`` as ``(shards,)`` with
+one index 5-tuple per shard; they become the port's stacked
+``ShardedTable`` / ``ShardedIndex``.  The tests use them to start both
+packages from one state.
 """
 
 from __future__ import annotations
@@ -16,8 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.index import AdHocIndex, PageCoverage
-from repro_torch.core.table import Table, resolve_device
+from repro_torch.core.index import AdHocIndex, PageCoverage, stack_indexes
+from repro_torch.core.table import Table, resolve_device, stack_shards
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -26,17 +30,26 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.int32), device=device)
 
 
-def table_from_reference(fields, device=None) -> Table:
-    """``fields``: (data, begin_ts, end_ts, n_rows) numpy arrays."""
+def table_from_reference(fields, device=None):
+    """``fields``: (data, begin_ts, end_ts, n_rows) numpy arrays, or a
+    sharded table's (shards, n_rows) -> ``ShardedTable``."""
     dev = resolve_device(device)
+    if len(fields) == 2:
+        shards, n_rows = fields
+        return stack_shards([table_from_reference(f, dev) for f in shards],
+                            int(np.asarray(n_rows)))
     data, begin_ts, end_ts, n_rows = fields
     return Table(_tensor(data, dev), _tensor(begin_ts, dev),
                  _tensor(end_ts, dev), int(np.asarray(n_rows)))
 
 
-def index_from_reference(fields, device=None) -> AdHocIndex:
-    """``fields``: (key_hi, key_lo, rids, n_entries, built_pages)."""
+def index_from_reference(fields, device=None):
+    """``fields``: (key_hi, key_lo, rids, n_entries, built_pages), or a
+    sharded index's (shards,) -> ``ShardedIndex``."""
     dev = resolve_device(device)
+    if len(fields) == 1:
+        return stack_indexes([index_from_reference(f, dev)
+                              for f in fields[0]])
     key_hi, key_lo, rids, n_entries, built_pages = fields
     return AdHocIndex(_tensor(key_hi, dev), _tensor(key_lo, dev),
                       _tensor(rids, dev), int(np.asarray(n_entries)),

@@ -1,6 +1,6 @@
 """Query execution: the Database facade over the planner/engine split.
 
-Port of ``repro.core.executor.Database`` on plain tables.  Owns the
+Port of ``repro.core.executor.Database``.  Owns the
 tables, built indexes and layout state of one database and executes
 benchmark statements, returning *measured* statistics in the same
 tuple-touch units the what-if cost model estimates in.  Cost, latency,
@@ -15,9 +15,15 @@ a ``PageCoverage`` bitmap; scans then adopt pages they table-scanned
 (``_crack_adopt``), build quanta may name explicit page lists, and the
 tuner's decay pass clears cold pages.
 
+Sharded storage is ported: pass ``num_shards > 1`` (or call
+``reshard``) to partition every table round-robin by page, or hand in
+pre-sharded ``ShardedTable``s, which are adopted as they are.  Results
+and accounting equal the single-shard engine's for any shard count.
+``vap_build_step(shard=)`` builds one shard's local prefix; the index
+then stitches per shard (``pershard_built``).
+
 Not ported yet (they raise ``NotImplementedError``): joins (HIGH-S),
-sharded storage and ``reshard``, shard-aware tuning, fault injection
-and VBP indexes.
+shard-aware tuning, fault injection and VBP indexes.
 """
 
 from __future__ import annotations
@@ -34,15 +40,28 @@ from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.engine import ScanEngine
 from repro_torch.core.index import (
     advance_build,
+    advance_build_shard,
     build_page_list,
     coverage_from_state,
     eligible_global_pages,
     make_index,
+    make_sharded_index,
+    shard_full_pages,
 )
 from repro_torch.core.layout import LayoutState, scan_width_factor
 from repro_torch.core.monitor import QueryRecord, WorkloadMonitor
 from repro_torch.core.planner import BuiltIndex, QueryPlanner, scan_cost
-from repro_torch.core.table import Table, insert_rows, update_rows
+from repro_torch.core.table import (
+    ShardedTable,
+    Table,
+    insert_rows,
+    round_robin_layout,
+    shard_table,
+    sharded_insert_rows,
+    sharded_update_rows,
+    unshard_table,
+    update_rows,
+)
 
 
 @dataclass
@@ -94,20 +113,17 @@ class Database:
 
     def __init__(
         self,
-        tables: Dict[str, Table],
+        tables: Dict[str, object],
         time_per_unit_ms: float = 1e-4,
         monitor_window: int = 256,
         monitor_max_age_ms: float | None = None,
         num_shards: int = 1,
     ):
-        if num_shards != 1:
-            raise NotImplementedError("sharded storage is not ported yet")
         for name, t in tables.items():
-            if not isinstance(t, Table):
-                raise NotImplementedError(
-                    f"table {name!r}: only plain tables are ported"
-                )
-        self.tables: Dict[str, Table] = dict(tables)
+            if not isinstance(t, (Table, ShardedTable)):
+                raise TypeError(f"table {name!r} is a {type(t).__name__}")
+        self.tables: Dict[str, object] = dict(tables)
+        self.num_shards = 1
         self.indexes: Dict[str, BuiltIndex] = {}
         self.layouts: Dict[str, LayoutState] = {
             name: LayoutState(n_attrs=t.n_attrs, n_pages=t.n_pages)
@@ -128,13 +144,32 @@ class Database:
         self.crack_on_scan: bool = False
         self.crack_pages_per_scan: int = 8
         self.index_decay: bool = False
+        # Indexes whose shard-local prefixes were built by
+        # shard-targeted quanta (``vap_build_step(shard=)``): their
+        # hybrid scans stitch per shard.
+        self.pershard_built: set = set()
         # Options of the reference whose slices are not ported yet;
         # setting one makes the next statement raise.
         self.shard_aware_tuning: bool = False
         self.fault_injector = None
+        self._round_robin_cache: Dict[str, bool] = {}
         self._zone_maps: Dict[tuple, tuple] = {}
         self.planner = QueryPlanner(self)
         self.engine = ScanEngine()
+        counts = {t.n_shards for t in self.tables.values()
+                  if isinstance(t, ShardedTable)}
+        if num_shards > 1:
+            self.reshard(num_shards)
+        elif counts:
+            # Adopt pre-sharded tables as they are when the layout is
+            # uniform; rebuild only to normalise a mixed layout.
+            target = max(counts)
+            if counts == {target} and all(
+                isinstance(t, ShardedTable) for t in self.tables.values()
+            ):
+                self.num_shards = target
+            else:
+                self.reshard(target)
 
     @property
     def device(self) -> torch.device:
@@ -147,12 +182,32 @@ class Database:
             raise NotImplementedError("fault injection is not ported yet")
 
     def reshard(self, num_shards: int) -> None:
-        raise NotImplementedError("sharded storage is not ported yet")
+        """Re-partition every table round-robin over ``num_shards``.
+        Built indexes are dropped (their rid spaces change); tuners
+        rebuild them.  Layout state survives: page ids are global
+        either way."""
+        for name in list(self.indexes):
+            self.drop_index(name)
+        for name, t in self.tables.items():
+            if isinstance(t, ShardedTable):
+                t = unshard_table(t)
+            self.tables[name] = (
+                shard_table(t, num_shards) if num_shards > 1 else t
+            )
+        self.num_shards = num_shards
+        self._round_robin_cache.clear()
+        self._zone_maps.clear()
 
     def table_is_round_robin(self, name: str) -> bool:
-        """Does ``name``'s layout map global page ids round-robin onto
-        shards?  Always, for the plain tables ported so far."""
-        return isinstance(self.tables[name], Table)
+        """Cached: does ``name``'s layout map global page ids
+        round-robin onto shards?  The mutators keep the answer, so it
+        changes only on reshard (which clears the cache)."""
+        got = self._round_robin_cache.get(name)
+        if got is None:
+            t = self.tables[name]
+            got = not isinstance(t, ShardedTable) or round_robin_layout(t)
+            self._round_robin_cache[name] = got
+        return got
 
     def _timed(self, fn, *args, **kwargs):
         """Run ``fn`` and return (result, wall seconds of finished
@@ -174,13 +229,17 @@ class Database:
         if scheme not in ("vap", "full"):
             raise NotImplementedError(f"{scheme} indexes are not ported yet")
         bi = BuiltIndex(desc=desc, scheme=scheme, created_ms=self.clock_ms)
-        bi.vap = make_index(t.capacity, t.device)
+        if isinstance(t, ShardedTable):
+            bi.vap = make_sharded_index(t)
+        else:
+            bi.vap = make_index(t.capacity, t.device)
         self.ensure_coverage(bi)
         self.indexes[desc.name] = bi
         return bi
 
     def drop_index(self, name: str) -> None:
         self.indexes.pop(name, None)
+        self.pershard_built.discard(name)
 
     def indexes_on(self, table: str):
         return [b for b in self.indexes.values() if b.desc.table == table]
@@ -212,22 +271,32 @@ class Database:
         return int((~bi.coverage.built[eligible]).sum())
 
     def zone_map(self, table: str, attr: int):
-        """Per-page (min, max) of ``attr`` over the fully populated
-        pages (advisory page-pruning metadata); pages outside the full
-        watermark get an empty (max < min) range.  Cached per (table,
+        """Per-GLOBAL-page (min, max) of ``attr`` over the fully
+        populated pages (advisory page-pruning metadata); pages outside
+        the full watermark get an empty (max < min) range.  Sharded
+        storage spans ``S * max_pages`` global ids.  Cached per (table,
         attr) until the table mutates."""
         key = (table, attr)
         got = self._zone_maps.get(key)
         if got is not None:
             return got
         t = self.tables[table]
-        full = t.n_rows // t.page_size
-        mins = np.full(t.n_pages, np.iinfo(np.int32).max, np.int64)
-        maxs = np.full(t.n_pages, np.iinfo(np.int32).min, np.int64)
-        if full:
-            vals = t.data[:full, :, attr]
-            mins[:full] = vals.amin(dim=1).cpu().numpy()
-            maxs[:full] = vals.amax(dim=1).cpu().numpy()
+        psz = t.page_size
+        if isinstance(t, ShardedTable):
+            S = t.n_shards
+            n_global = S * t.max_pages
+            parts = [(s + S * np.arange(r // psz), t.data[s, : r // psz])
+                     for s, r in enumerate(t.local_rows) if r // psz]
+        else:
+            n_global = t.n_pages
+            full = t.n_rows // psz
+            parts = [(np.arange(full), t.data[:full])] if full else []
+        mins = np.full(n_global, np.iinfo(np.int32).max, np.int64)
+        maxs = np.full(n_global, np.iinfo(np.int32).min, np.int64)
+        for gids, pages in parts:
+            vals = pages[:, :, attr]
+            mins[gids] = vals.amin(dim=1).cpu().numpy()
+            maxs[gids] = vals.amax(dim=1).cpu().numpy()
         got = (mins, maxs)
         self._zone_maps[key] = got
         return got
@@ -296,7 +365,7 @@ class Database:
         agg_sum, count, pages, probed, r_start = vals
         if plan.path == "table":
             start_page, entries = 0, 0.0
-        elif plan.path in ("hybrid", "hybrid_masked"):
+        elif plan.path in ("hybrid", "hybrid_ps", "hybrid_masked"):
             start_page, entries = r_start, float(probed)
         else:  # pure index scan: no table pages touched
             start_page, entries = t.n_pages, float(probed)
@@ -326,7 +395,7 @@ class Database:
         extraction and merge work is charged to the triggering query
         and reported as ``populate_units``."""
         if not self.crack_on_scan or plan.path not in (
-            "table", "hybrid", "hybrid_masked"
+            "table", "hybrid", "hybrid_ps", "hybrid_masked"
         ):
             return 0.0
         bi = plan.index
@@ -526,7 +595,8 @@ class Database:
         t = self.tables[q.table]
         layout = self.layouts[q.table]
         (new_t, n_upd), wall = self._timed(
-            update_rows,
+            sharded_update_rows if isinstance(t, ShardedTable)
+            else update_rows,
             t,
             tuple(q.attrs),
             q.los,
@@ -566,7 +636,8 @@ class Database:
         t = self.tables[q.table]
         rows = np.asarray(q.rows, np.int32)
         new_t, wall = self._timed(
-            insert_rows,
+            sharded_insert_rows if isinstance(t, ShardedTable)
+            else insert_rows,
             t,
             torch.from_numpy(rows),
             self.clock_ms_i32(),
@@ -594,29 +665,42 @@ class Database:
     # Tuner-side physical work, charged by the caller
     # ------------------------------------------------------------------
     def vap_build_step(self, bi: BuiltIndex, pages: int,
+                       shard: Optional[int] = None,
                        page_list=None) -> float:
         """Advance a VAP/FULL index by one resumable build quantum of
         ``pages`` pages (``index.advance_build``); returns work units.
-        Bitmap-mode indexes (``bi.coverage`` attached) build through
+        On sharded storage the budget round-robins across shards in
+        global page order -- unless ``shard`` targets one shard's local
+        prefix, which relaxes the global prefix invariant and flips the
+        index's hybrid scans to the per-shard stitch.  Bitmap-mode
+        indexes (``bi.coverage`` attached) build through
         ``_coverage_build_step``: an explicit ``page_list`` quantum
         (hot-range-first), or the lowest uncovered pages."""
         t = self.tables[bi.desc.table]
         if bi.coverage is not None:
-            return self._coverage_build_step(bi, t, pages, page_list)
-        bi.vap, done = advance_build(bi.vap, t, bi.desc.key_attrs, pages)
-        if bi.vap.built_pages >= t.n_rows // t.page_size:
+            return self._coverage_build_step(bi, t, pages, shard, page_list)
+        if shard is None:
+            bi.vap, done = advance_build(bi.vap, t, bi.desc.key_attrs, pages)
+            full_pages = t.n_rows // t.page_size
+        else:
+            bi.vap, done = advance_build_shard(
+                bi.vap, t, bi.desc.key_attrs, shard, pages)
+            self.pershard_built.add(bi.desc.name)
+            full_pages = sum(shard_full_pages(t))
+        if bi.vap.built_pages >= full_pages:
             bi.complete = True
             bi.building = False
         return float(done * t.page_size)
 
     def _coverage_build_step(self, bi: BuiltIndex, t, pages: int,
-                             page_list) -> float:
+                             shard: Optional[int], page_list) -> float:
         """Bitmap-mode build quantum.  Every entry goes through
         ``build_page_list``, never ``advance_build`` (the bitmap is the
         dedup authority).  A ``page_list`` is filtered against the live
         bitmap at apply time, so replaying a stale quantum is a no-op;
         with none the lowest uncovered pages build first, which is the
-        legacy page order."""
+        legacy page order, and a ``shard`` target keeps only that
+        shard's pages (p % S)."""
         cov = bi.coverage
         eligible = eligible_global_pages(t)
         open_mask = ~cov.built[eligible]
@@ -628,7 +712,10 @@ class Database:
                 np.int64,
             )
         else:
-            take = eligible[open_mask][: int(pages)]
+            open_pages = eligible[open_mask]
+            if shard is not None and isinstance(t, ShardedTable):
+                open_pages = open_pages[open_pages % t.n_shards == shard]
+            take = open_pages[: int(pages)]
         self._cover_pages(bi, t, take, eligible)
         return float(take.size * t.page_size)
 

@@ -44,10 +44,16 @@ from repro_torch.core.index import (
     I32_MAX,
     I32_MIN,
     AdHocIndex,
+    ShardedIndex,
     index_range_bounds,
     packed_keys,
 )
-from repro_torch.core.table import Table, conj_predicate_mask, visible_mask
+from repro_torch.core.table import (
+    ShardedTable,
+    Table,
+    conj_predicate_mask,
+    visible_mask,
+)
 from repro_torch.kernels.ref import i32_sum
 
 
@@ -119,51 +125,77 @@ def _predicate_key_bounds(key_attrs: tuple, attrs: tuple, los, his):
 
 
 class _Probe(NamedTuple):
-    """The probed index entries of a batch, flattened query by query:
-    query q's entries are the contiguous segment [bounds[q],
-    bounds[q + 1])."""
+    """The probed index entries of a batch of B queries over S stacked
+    shards (a plain table is S = 1), flattened segment by segment:
+    segment ``s * B + q`` holds query q's entries in shard s's index,
+    the contiguous range [bounds[seg], bounds[seg + 1])."""
 
+    seg: torch.Tensor  # (E,) int64 segment of each entry
     qid: torch.Tensor  # (E,) int64 query of each entry
-    bounds: torch.Tensor  # (B + 1,) int64 segment boundaries
+    bounds: torch.Tensor  # (S * B + 1,) int64 segment boundaries
     spans: list  # the same boundaries as host ints
-    rids: torch.Tensor  # (E,) int64
-    page: torch.Tensor  # (E,) int64
+    rids: torch.Tensor  # (E,) int64 stacked row (== local rid at S = 1)
+    page: torch.Tensor  # (E,) int64 local page
     match: torch.Tensor  # (E,) bool: predicate and visibility hold
     vals: torch.Tensor  # (E,) int32 aggregate column
-    entries_probed: torch.Tensor  # (B,) int32
+    entries_probed: torch.Tensor  # (S * B,) int32
 
 
-def _probe(table: Table, index: AdHocIndex, key_attrs, attrs, los, his,
-           tss, agg_attr) -> _Probe:
-    dev = table.device
-    B = los.shape[0]
-    lo_p, hi_p = _predicate_key_bounds(key_attrs, attrs, los, his)
-    start, stop = index_range_bounds(index, lo_p, hi_p)
-    cnt = stop - start
+def _probe_stacked(st: ShardedTable, index: ShardedIndex, key_attrs,
+                   attrs, los, his, tss, agg_attr) -> _Probe:
+    """Probe the S stacked indexes of a sharded table at once (local
+    rids).  Each shard's entries in a query's key range are found by
+    binary search (``index_range_bounds``)."""
+    data = st.data
+    dev = data.device
+    S, B = data.shape[0], los.shape[0]
+    psz = data.shape[2]
+    start, stop = index_range_bounds(
+        index, *_predicate_key_bounds(key_attrs, attrs, los, his))
+    cnt = (stop - start).reshape(-1)
     bounds = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                         torch.cumsum(cnt, 0)])
     spans = bounds.tolist()
     total = spans[-1]
-    qid = torch.repeat_interleave(torch.arange(B, device=dev), cnt,
+    seg = torch.repeat_interleave(torch.arange(S * B, device=dev), cnt,
                                   output_size=total)
-    pos = start[qid] + torch.arange(total, device=dev) - bounds[qid]
-    rids = index.rids[pos].to(torch.int64)
-    flat = table.data.view(-1, table.n_attrs)
+    pos = start.reshape(-1)[seg] + torch.arange(total, device=dev) - \
+        bounds[seg]
+    shard = seg // B
+    local = index.rids.reshape(-1)[shard * index.rids.shape[1] + pos].to(
+        torch.int64)
+    rows = shard * (data.shape[1] * psz) + local
+    flat = data.reshape(-1, data.shape[-1])
+    qid = seg % B
     match = torch.ones(total, dtype=torch.bool, device=dev)
     for k, a in enumerate(attrs):
-        col = flat[rids, a]
+        col = flat[rows, a]
         match &= (col >= los[qid, k]) & (col <= his[qid, k])
     ts = tss[qid]
-    match &= (table.begin_ts.view(-1)[rids] <= ts) & (
-        ts < table.end_ts.view(-1)[rids])
-    return _Probe(qid, bounds, spans, rids, rids // table.page_size, match,
-                  flat[rids, agg_attr], cnt.to(torch.int32))
+    match &= (st.begin_ts.reshape(-1)[rows] <= ts) & (
+        ts < st.end_ts.reshape(-1)[rows])
+    return _Probe(seg, qid, bounds, spans, rows, local // psz, match,
+                  flat[rows, agg_attr], cnt.to(torch.int32))
+
+
+def _probe(table: Table, index: AdHocIndex, key_attrs, attrs, los, his,
+           tss, agg_attr) -> _Probe:
+    """``_probe_stacked`` for one plain table and its index, viewed as
+    one shard (segments are queries, rows are rids)."""
+    st = ShardedTable(table.data[None], table.begin_ts[None],
+                      table.end_ts[None], (table.n_pages,),
+                      (table.n_rows,), table.n_rows)
+    six = ShardedIndex(index.key_hi[None], index.key_lo[None],
+                       index.rids[None], (index.n_entries,),
+                       (index.built_pages,), (index.capacity,))
+    return _probe_stacked(st, six, key_attrs, attrs, los, his, tss,
+                          agg_attr)
 
 
 def _segment_sums(pr: _Probe, keep):
-    """Per-query int32 (sum, count) of the kept entries, as differences
-    of running int64 sums at the segment boundaries (no atomics: a
-    burst's entries fall into only B segments)."""
+    """Per-segment int32 (sum, count) of the kept entries, as
+    differences of running int64 sums at the segment boundaries (no
+    atomics: a burst's entries fall into only S * B segments)."""
     zero = torch.zeros(1, dtype=torch.int64, device=keep.device)
     vals = torch.where(keep, pr.vals, 0).to(torch.int64)
     csum = torch.cat([zero, torch.cumsum(vals, 0)])
@@ -173,10 +205,11 @@ def _segment_sums(pr: _Probe, keep):
             (ccnt[hi] - ccnt[lo]).to(torch.int32))
 
 
-def _segment_max_page(pr: _Probe):
-    """Per query: the largest page holding a matching entry, else -1
-    (rho_m) -- one reduction over each query's segment."""
-    marked = torch.where(pr.match, pr.page, -1)
+def _segment_max_page(pr: _Probe, page=None):
+    """Per segment: the largest page (``pr.page``, or the given per-entry
+    page ids) holding a matching entry, else -1 (rho_m) -- one
+    reduction over each segment."""
+    marked = torch.where(pr.match, pr.page if page is None else page, -1)
     parts = [marked[a:b].amax() if b > a else marked.new_tensor(-1)
              for a, b in zip(pr.spans[:-1], pr.spans[1:])]
     return torch.stack(parts) if parts else marked.new_empty(0)
@@ -188,7 +221,7 @@ def _hybrid_prefix(table, index, key_attrs, attrs, los, his, tss,
     pr = _probe(table, index, key_attrs, attrs, los, his, tss, agg_attr)
     rho_m = _segment_max_page(pr)
     start_page = torch.clamp(rho_m, min=index.built_pages)  # rho_i + 1
-    keep = pr.match & (pr.page < start_page[pr.qid])
+    keep = pr.match & (pr.page < start_page[pr.seg])
     s, c = _segment_sums(pr, keep)
     res = HybridPrefixResult(s, c, pr.entries_probed,
                              start_page.to(torch.int32))
@@ -203,15 +236,17 @@ def _table_suffix(table: Table, attrs, los, his, tss, agg_attr, start_pages):
                        page_ids[None, :] >= start_pages[:, None])
 
 
-def _table_side(table: Table, attrs, los, his, tss, agg_attr, page_ok):
-    """Plain table side of B scans over the pages ``page_ok`` (B,
-    n_pages) bool selects for each query: (sums, counts, masks)."""
-    vals = table.data[:, :, agg_attr]
+def _table_side(table, attrs, los, his, tss, agg_attr, page_ok):
+    """Plain table side of B scans over the pages ``page_ok`` selects
+    for each query: (B, n_pages) bool on a ``Table``, (B, S,
+    max_pages) on a ``ShardedTable`` (summed over shards).  Returns
+    (sums, counts, masks)."""
+    vals = table.data[..., agg_attr]
     sums, cnts, masks = [], [], []
     for q in range(los.shape[0]):
         mask = conj_predicate_mask(table, attrs, los[q], his[q])
         mask &= visible_mask(table, tss[q])
-        mask &= page_ok[q][:, None]
+        mask &= page_ok[q][..., None]
         sums.append(i32_sum(torch.where(mask, vals, 0)))
         cnts.append(i32_sum(mask))
         masks.append(mask)
@@ -221,13 +256,13 @@ def _table_side(table: Table, attrs, los, his, tss, agg_attr, page_ok):
     return torch.stack(sums), torch.stack(cnts), masks
 
 
-def _used_pages(table: Table) -> int:
-    """Pages up to the append watermark (headroom pages beyond it hold
-    no tuples and are not charged)."""
+def _used_pages(table) -> int:
+    """Global pages up to the append watermark (headroom pages beyond
+    it hold no tuples and are not charged); either storage."""
     return -(-table.n_rows // table.page_size)
 
 
-def _pages_after(table: Table, start_page):
+def _pages_after(table, start_page):
     return torch.clamp(_used_pages(table) - start_page.to(torch.int64),
                        min=0).to(torch.int32)
 

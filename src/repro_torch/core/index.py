@@ -28,8 +28,18 @@ entries may exist for uncovered pages (decay clears bits without
 compacting), and masked scans drop those on the index side and scan
 every uncovered page.  A bitmap that is exactly the ``built_pages``
 prefix with no entries beyond it (``legacy_prefix_ok``) keeps the
-legacy ``start_page`` paths.  Only plain tables are ported; their
-global page ids are the local ones (one shard).
+legacy ``start_page`` paths.  On a plain table the global page ids
+are the local ones; on a round-robin ``ShardedTable`` global page p is
+local page p // S of shard p % S.
+
+Sharded storage keeps one local index per shard (local rids, a local
+``built_pages`` prefix), as in the reference.  A ``ShardedIndex`` holds
+them stacked on a leading shard axis, padded to the largest shard's
+capacity with invalid keys past each shard's own capacity (the
+``n_entries`` guard masks them off), which is the layout the engine
+probes in one pass.  Build quanta return a new ``ShardedIndex`` with
+new arrays; none is ever written in place, so a plan's pinned state
+stays what it was when the plan was made.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.table import INF_TS, Table
+from repro_torch.core.table import INF_TS, ShardedTable, Table
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -162,25 +172,171 @@ def build_full(index: AdHocIndex, table: Table, key_attrs: tuple
 
 
 # ---------------------------------------------------------------------------
+# Sharded VAP / FULL: one local index per table shard, stacked
+# ---------------------------------------------------------------------------
+
+class ShardedIndex(NamedTuple):
+    """Per-shard ``AdHocIndex`` states over a ``ShardedTable``.
+
+    ``key_hi`` / ``key_lo`` / ``rids`` are (S, max_capacity) int32 with
+    shard s's sorted entries in row s (local rids) and invalid keys
+    past its own capacity; ``shard_entries``, ``shard_built`` and
+    ``capacities`` are per-shard host ints.  ``shard(s)`` is shard s's
+    ``AdHocIndex`` (views).  Under the in-order build the union of the
+    local prefixes is the global prefix [0, ``built_pages``).
+    """
+
+    key_hi: torch.Tensor
+    key_lo: torch.Tensor
+    rids: torch.Tensor
+    shard_entries: tuple
+    shard_built: tuple
+    capacities: tuple
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.capacities)
+
+    @property
+    def built_pages(self) -> int:
+        """Global fully-indexed page prefix length (== rho_i + 1)."""
+        return sum(self.shard_built)
+
+    @property
+    def n_entries(self) -> int:
+        return sum(self.shard_entries)
+
+    @property
+    def capacity(self) -> int:
+        return sum(self.capacities)
+
+    def shard(self, s: int) -> AdHocIndex:
+        cap = self.capacities[s]
+        return AdHocIndex(self.key_hi[s, :cap], self.key_lo[s, :cap],
+                          self.rids[s, :cap], self.shard_entries[s],
+                          self.shard_built[s])
+
+    @property
+    def shards(self) -> tuple:
+        return tuple(self.shard(s) for s in range(self.n_shards))
+
+    def replace_shards(self, new: dict) -> "ShardedIndex":
+        """A new ``ShardedIndex`` with the shards ``{s: AdHocIndex}``
+        replaced (new arrays; ``self`` is left as it was)."""
+        if not new:
+            return self
+        arrays = [self.key_hi.clone(), self.key_lo.clone(),
+                  self.rids.clone()]
+        entries, built = list(self.shard_entries), list(self.shard_built)
+        for s, ix in new.items():
+            for out, x in zip(arrays, ix[:3]):
+                out[s, : self.capacities[s]] = x
+            entries[s], built[s] = ix.n_entries, ix.built_pages
+        return ShardedIndex(*arrays, tuple(entries), tuple(built),
+                            self.capacities)
+
+
+def stack_indexes(shards: Sequence[AdHocIndex]) -> ShardedIndex:
+    """Stack per-shard indexes (padding past each shard's capacity
+    holds invalid keys and rid 0)."""
+    caps = tuple(ix.capacity for ix in shards)
+    empty = make_index(max(caps), shards[0].key_hi.device)
+    S = len(caps)
+    out = ShardedIndex(*(x[None].repeat(S, 1) for x in empty[:3]),
+                       (0,) * S, (0,) * S, caps)
+    return out.replace_shards(dict(enumerate(shards)))
+
+
+def make_sharded_index(table: ShardedTable) -> ShardedIndex:
+    """Empty per-shard indexes, one slot per local row slot."""
+    return stack_indexes([make_index(lp * table.page_size, table.device)
+                          for lp in table.local_pages])
+
+
+def _count_owned_below(bound: int, shard: int, n_shards: int) -> int:
+    """#{global page p < bound : p % n_shards == shard}."""
+    return max(0, -(-(bound - shard) // n_shards))
+
+
+def sharded_build_pages_vap(index: ShardedIndex, table: ShardedTable,
+                            key_attrs: tuple,
+                            pages_per_cycle: int) -> ShardedIndex:
+    """One VAP cycle over sharded storage: index the next
+    ``pages_per_cycle`` pages in GLOBAL page order (global page p
+    extends shard p % S), so the built pages equal the single-shard
+    build's at the same cumulative budget."""
+    S = index.n_shards
+    built = index.built_pages
+    new = {}
+    for s in range(S):
+        step = (_count_owned_below(built + pages_per_cycle, s, S)
+                - _count_owned_below(built, s, S))
+        if step > 0:
+            new[s] = build_pages_vap(index.shard(s), table.shard(s),
+                                     key_attrs, pages_per_cycle=step)
+    return index.replace_shards(new)
+
+
+# ---------------------------------------------------------------------------
 # Resumable build quanta
 # ---------------------------------------------------------------------------
 
-def advance_build(state: AdHocIndex, table: Table, key_attrs: tuple,
-                  pages: int):
+def advance_build(state, table, key_attrs: tuple, pages: int):
     """One resumable build quantum: advance the built prefix by up to
-    ``pages`` pages; returns ``(state, pages_done)``.  A cycle's budget
-    applied as one call or as any sequence of smaller quanta yields the
-    same entries and watermark."""
+    ``pages`` pages (``build_pages_vap``, or ``sharded_build_pages_vap``
+    on sharded storage); returns ``(state, pages_done)``.  A cycle's
+    budget applied as one call or as any sequence of smaller quanta
+    yields the same entries and watermark."""
     before = state.built_pages
-    state = build_pages_vap(state, table, key_attrs,
-                            pages_per_cycle=int(pages))
+    if isinstance(state, ShardedIndex):
+        state = sharded_build_pages_vap(state, table, key_attrs,
+                                        pages_per_cycle=int(pages))
+    else:
+        state = build_pages_vap(state, table, key_attrs,
+                                pages_per_cycle=int(pages))
     return state, state.built_pages - before
 
 
-def build_pages_remaining(state: AdHocIndex, table: Table) -> int:
+def build_pages_remaining(state, table) -> int:
     """Fully-populated pages not yet covered by the built prefix."""
     full_pages = table.n_rows // table.page_size
     return max(full_pages - state.built_pages, 0)
+
+
+# Per-shard build quanta: each shard's local prefix advances on its
+# own, so the union of the local prefixes need not be a global prefix
+# any more; the planner then stitches hybrid scans per shard.  Every
+# shard still builds its own pages in order.
+
+def shard_full_pages(table: ShardedTable) -> list:
+    """Fully-populated (indexable) page count per shard."""
+    return [r // table.page_size for r in table.local_rows]
+
+
+def shard_remaining_pages(state: ShardedIndex, table: ShardedTable) -> list:
+    """Unbuilt fully-populated pages per shard."""
+    return [max(f - b, 0)
+            for f, b in zip(shard_full_pages(table), state.shard_built)]
+
+
+def prefix_is_round_robin(state: ShardedIndex) -> bool:
+    """True iff the shard-local prefixes still partition one global
+    page prefix under the round-robin page map (the global stitch is
+    sound for this state)."""
+    S, total = state.n_shards, state.built_pages
+    return all(b == _count_owned_below(total, s, S)
+               for s, b in enumerate(state.shard_built))
+
+
+def advance_build_shard(state: ShardedIndex, table: ShardedTable,
+                        key_attrs: tuple, shard: int, pages: int):
+    """One shard-targeted build quantum: advance ``shard``'s local
+    prefix by up to ``pages`` pages, clamped at that shard's full-page
+    watermark.  Returns (state, pages_done)."""
+    before = state.shard_built[shard]
+    ix = build_pages_vap(state.shard(shard), table.shard(shard), key_attrs,
+                         pages_per_cycle=int(pages))
+    return state.replace_shards({shard: ix}), ix.built_pages - before
 
 
 def split_build_pages(pages: int, quantum_pages: int | None):
@@ -213,19 +369,27 @@ def index_range_scan(index: AdHocIndex, lo: KeyPair, hi: KeyPair):
     return mask, index.rids
 
 
-def index_range_bounds(index: AdHocIndex, lo_packed, hi_packed):
+def index_range_bounds(index, lo_packed, hi_packed):
     """Batched form of ``index_range_scan`` by binary search.
 
     The entries are sorted, so the entries with keys in [lo, hi] and
     position < n_entries are exactly the positions [start, stop).
     ``lo_packed``/``hi_packed`` are (B,) int64 ``packed_keys`` bounds;
-    returns (start, stop), (B,) int64 each, stop >= start.
+    returns (start, stop), (B,) int64 each, stop >= start -- or, for a
+    ``ShardedIndex``, (S, B) each: query q's range in shard s's index.
     """
     keys = packed_keys(index.key_hi, index.key_lo)
+    if isinstance(index, ShardedIndex):
+        shape = (index.n_shards, lo_packed.shape[0])
+        lo_packed = lo_packed.expand(shape).contiguous()
+        hi_packed = hi_packed.expand(shape).contiguous()
+        n = torch.tensor(index.shard_entries, device=keys.device)[:, None]
+    else:
+        n = torch.tensor(index.n_entries, device=keys.device)
     start = torch.searchsorted(keys, lo_packed, right=False)
     stop = torch.searchsorted(keys, hi_packed, right=True)
-    start = torch.clamp(start, max=index.n_entries)
-    stop = torch.maximum(torch.clamp(stop, max=index.n_entries), start)
+    start = torch.minimum(start, n)
+    stop = torch.maximum(torch.minimum(stop, n), start)
     return start, stop
 
 
@@ -390,15 +554,37 @@ class CoverageView(NamedTuple):
     words: torch.Tensor  # (S, W) int32 packed coverage words
 
 
-def eligible_global_pages(table: Table) -> np.ndarray:
+def eligible_global_pages(table) -> np.ndarray:
     """Global ids of the fully populated pages -- the only pages
     eligible for a coverage bit (the watermark page is always
-    table-scanned).  Plain table: ``[0, n_rows // page_size)``."""
-    return np.arange(table.n_rows // table.page_size, dtype=np.int64)
+    table-scanned).  Plain table: ``[0, n_rows // page_size)``; sharded
+    storage: each shard's local full prefix as global ids
+    ``s + S * l``, sorted."""
+    psz = table.page_size
+    if isinstance(table, ShardedTable):
+        S = table.n_shards
+        out = np.concatenate([
+            s + S * np.arange(r // psz, dtype=np.int64)
+            for s, r in enumerate(table.local_rows)])
+        out.sort()
+        return out
+    return np.arange(table.n_rows // psz, dtype=np.int64)
 
 
-def coverage_from_state(state: AdHocIndex, table: Table) -> PageCoverage:
-    """A bitmap equivalent to an index state's built prefix."""
+def coverage_from_state(state, table) -> PageCoverage:
+    """A bitmap equivalent to an index state's built pages.  Per-shard
+    prefixes map each shard's local run to global ids ``s + S * l``;
+    the sharded bitmap spans ``S * max_pages`` global ids (padding
+    bits stay unbuilt)."""
+    if isinstance(state, ShardedIndex):
+        S = state.n_shards
+        cov = PageCoverage(S * table.max_pages, table.page_size,
+                           table.device)
+        pages = [s + S * np.arange(b, dtype=np.int64)
+                 for s, b in enumerate(state.shard_built) if b > 0]
+        if pages:
+            cov.set_pages(np.concatenate(pages))
+        return cov
     return PageCoverage.from_prefix(table.n_pages, state.built_pages,
                                     table.page_size, table.device)
 
@@ -436,11 +622,21 @@ def build_pages_at(index: AdHocIndex, table: Table, key_attrs: tuple,
     return AdHocIndex(mh, ml, mr, n_entries, index.built_pages)
 
 
-def build_page_list(state: AdHocIndex, table: Table, key_attrs: tuple,
-                    global_pages) -> AdHocIndex:
-    """Build entries for an explicit global page list; returns the new
-    index state.  The caller flips the coverage bits."""
+def build_page_list(state, table, key_attrs: tuple, global_pages):
+    """Build entries for an explicit GLOBAL page list; returns the new
+    index state.  Sharded storage routes each page to its round-robin
+    owner (shard p % S, local page p // S).  The caller flips the
+    coverage bits."""
     pages = [int(p) for p in global_pages]
     if not pages:
         return state
+    if isinstance(state, ShardedIndex):
+        S = state.n_shards
+        new = {}
+        for s in range(S):
+            local = [p // S for p in pages if p % S == s]
+            if local:
+                new[s] = build_pages_at(state.shard(s), table.shard(s),
+                                        key_attrs, local)
+        return state.replace_shards(new)
     return build_pages_at(state, table, key_attrs, pages)

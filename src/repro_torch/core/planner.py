@@ -9,10 +9,13 @@ scan when the predicate is not selective or no index matches.  FULL
 indexes are usable only when complete (then as a pure index scan).
 A VAP index with a coverage bitmap that is not the legacy prefix
 plans the masked stitch (``hybrid_masked``) with the bitmap's view
-pinned into the plan.
+pinned into the plan.  On sharded storage a hybrid scan stitches per
+shard (``hybrid_ps``) once shard-targeted builds have diverged from
+the global round-robin prefix or the table's layout is not
+round-robin.
 
-Value-based (VBP) indexes and sharded storage are not ported yet: a
-VBP index in the catalog raises.
+Value-based (VBP) indexes are not ported yet: a VBP index in the
+catalog raises.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from typing import Optional, Tuple
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
+from repro_torch.core.index import ShardedIndex
 from repro_torch.core.layout import LayoutState, scan_width_factor
+from repro_torch.core.table import ShardedTable
 
 HYBRID_SELECTIVITY_CUTOFF = 0.20  # optimizer switches to table scan above
 
@@ -52,7 +57,7 @@ class BuiltIndex:
 
     desc: IndexDescriptor
     scheme: str  # 'vap' | 'full'
-    vap: Optional[object] = None  # AdHocIndex
+    vap: Optional[object] = None  # AdHocIndex | ShardedIndex
     vbp: Optional[object] = None  # VBP state (not ported)
     complete: bool = False  # FULL usable flag
     building: bool = True  # under construction (VAP/FULL)
@@ -92,7 +97,8 @@ class IndexSnapshot:
 class ScanPlan:
     """One planned scan: the access path plus the index serving it.
 
-    ``path`` is 'table' | 'hybrid' | 'hybrid_masked' | 'pure_vap'.
+    ``path`` is 'table' | 'hybrid' | 'hybrid_ps' | 'hybrid_masked' |
+    'pure_vap'.
     ``pinned_state`` is the index state the plan was minted against;
     ``pinned_coverage`` the frozen ``CoverageView`` of the masked path
     (every plan of a burst is minted before any dispatch, so the view
@@ -200,19 +206,39 @@ class QueryPlanner:
                 pinned_state=vap,
                 pinned_coverage=self._pin_coverage(bi, cov),
             )
-        return ScanPlan("hybrid", bi, pinned_state=vap)  # VAP or FULL
+        path = "hybrid"  # VAP, or FULL still building
+        if self._needs_pershard_stitch(bi, vap):
+            path = "hybrid_ps"
+        return ScanPlan(path, bi, pinned_state=vap)
 
     @staticmethod
     def _coverage_is_legacy(cov, vap) -> bool:
         """A bitmap that IS the prefix the index watermark claims (with
         no entries beyond it) takes the legacy start_page path, bit for
-        bit -- routing is a fast-path choice only."""
+        bit -- routing is a fast-path choice only.  A sharded index's
+        watermark is the sum of its local prefixes."""
         return cov.legacy_prefix_ok(vap.built_pages)
 
     def _pin_coverage(self, bi: BuiltIndex, cov):
-        """Freeze the live bitmap into the view the burst pins (one
-        shard: a plain table)."""
-        return cov.view(1, self.db.tables[bi.desc.table].n_pages)
+        """Freeze the live bitmap into the view the burst pins: one row
+        per shard over local page ids (``cov.view(S, max_pages)``; a
+        plain table is one shard)."""
+        t = self.db.tables[bi.desc.table]
+        if isinstance(t, ShardedTable):
+            return cov.view(t.n_shards, t.max_pages)
+        return cov.view(1, t.n_pages)
+
+    def _needs_pershard_stitch(self, bi: BuiltIndex, vap) -> bool:
+        """The global hybrid stitch is sound only while the shard-local
+        built prefixes partition one global page prefix under the
+        round-robin page map.  Shard-targeted build quanta and adopted
+        layouts that are not round-robin both break that, so those
+        scans stitch per shard."""
+        if not isinstance(vap, ShardedIndex):
+            return False
+        if bi.desc.name in self.db.pershard_built:
+            return True
+        return not self.db.table_is_round_robin(bi.desc.table)
 
 
 def scan_cost(

@@ -1,7 +1,8 @@
 """Paged, in-memory columnar table with lightweight multi-versioning.
 
-Port of ``repro.core.table`` (plain tables).  Same layout at the
-public surface, held in torch tensors on one explicit device:
+Port of ``repro.core.table``: plain tables and sharded storage.  Same
+layout at the public surface, held in torch tensors on one explicit
+device:
 
 ``data``      (n_pages, page_size, n_attrs) int32   -- attribute values
 ``begin_ts``  (n_pages, page_size) int32            -- MVCC begin timestamp
@@ -26,11 +27,24 @@ Two deliberate differences from the reference:
   real row in that slot (ROADMAP.md, queue 3 item 1); here the row is
   kept.  Everywhere else the two agree bit for bit
   (tests/test_torch_table_index.py).
+
+Sharded storage (the second half of the module) keeps the reference's
+page map -- global page ``p`` on shard ``p % S`` at local page
+``p // S`` for tables this module shards -- but holds a
+``ShardedTable`` as the stacked tensors themselves: every shard padded
+to one local page grid on a leading shard axis, padding pages
+invisible.  The reference caches such a stacked copy per shards tuple
+and relies on its mutators returning fresh tuples; here the mutators
+write in place, so the stacked tensors are the only copy and no cache
+can go stale.  Each shard's ``Table`` is a view (``ShardedTable.
+shard``).  The sharded INSERT / UPDATE write only real rows, so the
+reference's parked writes on each shard's last slot (which can lose a
+row there, ROADMAP.md queue 3 item 1) do not occur.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -121,6 +135,9 @@ def load_table(values: np.ndarray, page_size: int, n_pages: int | None = None,
 # Visibility & predicates
 # ---------------------------------------------------------------------------
 
+# These take a ``Table`` or a ``ShardedTable``: masks have the shape of
+# ``begin_ts``, (n_pages, page_size) or (S, max_pages, page_size).
+
 def visible_mask(table: Table, ts) -> torch.Tensor:
     """(n_pages, page_size) bool -- versions visible at snapshot ``ts``."""
     return (table.begin_ts <= ts) & (ts < table.end_ts)
@@ -128,14 +145,14 @@ def visible_mask(table: Table, ts) -> torch.Tensor:
 
 def range_predicate_mask(table: Table, attr: int, lo, hi) -> torch.Tensor:
     """(n_pages, page_size) bool -- rows with lo <= a_attr <= hi."""
-    col = table.data[:, :, attr]
+    col = table.data[..., attr]
     return (col >= lo) & (col <= hi)
 
 
 def conj_predicate_mask(table: Table, attrs, los, his) -> torch.Tensor:
     """Conjunctive multi-attribute range predicate over ``attrs``
     (column indices) with per-attribute inclusive bounds."""
-    mask = torch.ones(table.data.shape[:2], dtype=torch.bool,
+    mask = torch.ones(table.data.shape[:-1], dtype=torch.bool,
                       device=table.device)
     for k, attr in enumerate(attrs):
         mask &= range_predicate_mask(table, attr, los[k], his[k])
@@ -200,3 +217,254 @@ def table_scan(table: Table, attrs: tuple, los, his, ts, agg_attr: int,
     mask &= page_ids >= from_page
     vals = table.data[:, :, agg_attr]
     return mask, i32_sum(torch.where(mask, vals, 0)), i32_sum(mask)
+
+
+# ---------------------------------------------------------------------------
+# Sharded storage: pages partitioned over S shards, held stacked
+# ---------------------------------------------------------------------------
+#
+# Round-robin partitioning (``shard_table``) puts global page p on shard
+# p % S at local page p // S, so the in-order VAP build's global prefix
+# maps to a local prefix on every shard.  Rows keep global rids; each
+# shard fills its slots in local rid order and tracks a local append
+# watermark.  Pre-sharded tables with another layout (``stack_shards``)
+# are adopted as they are; the planner then stitches hybrid scans per
+# shard.  Results and accounting equal the single-shard engine's for
+# any shard count (tests/test_torch_sharded.py).
+
+
+class ShardedTable(NamedTuple):
+    """S shards stacked on a leading axis, padded to one page grid.
+
+    ``data`` (S, max_pages, page_size, n_attrs), ``begin_ts`` /
+    ``end_ts`` (S, max_pages, page_size) int32 on one device; padding
+    pages (local page >= ``local_pages[s]``) carry ``begin_ts ==
+    NEVER_TS`` and so are invisible to every snapshot.  ``local_pages``
+    and ``local_rows`` (each shard's real page count and append
+    watermark) and the global watermark ``n_rows`` are host ints.  The
+    geometry properties report global values, so cost code written
+    against ``Table`` works on either storage.
+    """
+
+    data: torch.Tensor
+    begin_ts: torch.Tensor
+    end_ts: torch.Tensor
+    local_pages: tuple
+    local_rows: tuple
+    n_rows: int
+
+    @property
+    def n_shards(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def max_pages(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def page_size(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def n_attrs(self) -> int:
+        return self.data.shape[3]
+
+    @property
+    def n_pages(self) -> int:
+        return sum(self.local_pages)
+
+    @property
+    def capacity(self) -> int:
+        return self.n_pages * self.page_size
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def shard(self, s: int) -> Table:
+        """Shard ``s`` as a ``Table`` of views (no copy)."""
+        lp = self.local_pages[s]
+        return Table(self.data[s, :lp], self.begin_ts[s, :lp],
+                     self.end_ts[s, :lp], self.local_rows[s])
+
+    @property
+    def shards(self) -> tuple:
+        return tuple(self.shard(s) for s in range(self.n_shards))
+
+    def local_pages_tensor(self) -> torch.Tensor:
+        """(S,) int32 ``local_pages`` on the table's device."""
+        return torch.tensor(self.local_pages, dtype=torch.int32,
+                            device=self.device)
+
+    def global_page_ids(self) -> torch.Tensor:
+        """(S, max_pages) int64 round-robin global page id of every
+        stacked page (``lp * S + s``)."""
+        S = self.n_shards
+        lp = torch.arange(self.max_pages, device=self.device)
+        return lp[None, :] * S + torch.arange(S, device=self.device)[:, None]
+
+
+def local_n_rows(n_rows: int, shard: int, n_shards: int, page_size: int,
+                 local_pages: int) -> int:
+    """Local append watermark implied by the global watermark: the
+    shard's pages fully below the global watermark page, plus that
+    page's partial fill if this shard owns it."""
+    watermark, partial = divmod(int(n_rows), page_size)
+    full_local = min(max((watermark - shard + n_shards - 1) // n_shards, 0),
+                     local_pages)
+    owns = (watermark % n_shards == shard
+            and watermark // n_shards < local_pages)
+    return full_local * page_size + (partial if owns else 0)
+
+
+def global_rids(local_pages: int, shard: int, n_shards: int,
+                page_size: int, device=None) -> torch.Tensor:
+    """(local_pages * page_size,) int64 global rid of each local slot."""
+    dev = resolve_device(device)
+    pages = torch.arange(local_pages, device=dev) * n_shards + shard
+    slots = torch.arange(page_size, device=dev)
+    return (pages[:, None] * page_size + slots[None, :]).reshape(-1)
+
+
+def stack_shards(shards: Sequence[Table], n_rows: int) -> ShardedTable:
+    """Stack per-shard ``Table``s (a pre-sharded layout, as the
+    reference's ``ShardedTable(shards, n_rows)``) into one padded
+    ``ShardedTable``; the shards' own watermarks are kept."""
+    shards = list(shards)
+    if not shards:
+        raise ValueError("a sharded table needs at least one shard")
+    t0 = shards[0]
+    dev = t0.device
+    max_pages = max(t.n_pages for t in shards)
+    S = len(shards)
+    psz, n_attrs = t0.page_size, t0.n_attrs
+    data = torch.zeros((S, max_pages, psz, n_attrs), dtype=torch.int32,
+                       device=dev)
+    begin = torch.full((S, max_pages, psz), NEVER_TS, dtype=torch.int32,
+                       device=dev)
+    end = torch.full((S, max_pages, psz), INF_TS, dtype=torch.int32,
+                     device=dev)
+    for s, t in enumerate(shards):
+        if (t.page_size, t.n_attrs) != (psz, n_attrs):
+            raise ValueError("shards must share page size and width")
+        data[s, : t.n_pages] = t.data
+        begin[s, : t.n_pages] = t.begin_ts
+        end[s, : t.n_pages] = t.end_ts
+    return ShardedTable(data, begin, end,
+                        tuple(t.n_pages for t in shards),
+                        tuple(int(t.n_rows) for t in shards), int(n_rows))
+
+
+def shard_table(table: Table, num_shards: int) -> ShardedTable:
+    """Partition ``table`` round-robin by page id into ``num_shards``."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if table.n_pages < num_shards:
+        raise ValueError(f"cannot spread {table.n_pages} pages over "
+                         f"{num_shards} shards")
+    S, psz = num_shards, table.page_size
+    shards = []
+    for s in range(S):
+        n = len(range(s, table.n_pages, S))
+        shards.append(Table(table.data[s::S], table.begin_ts[s::S],
+                            table.end_ts[s::S],
+                            local_n_rows(table.n_rows, s, S, psz, n)))
+    return stack_shards(shards, table.n_rows)
+
+
+def round_robin_layout(st: ShardedTable) -> bool:
+    """True iff the occupied pages follow the round-robin page map (the
+    layout ``shard_table`` produces): each shard's fully populated
+    pages are exactly its share of one global page prefix, and at most
+    the global watermark page is partially filled."""
+    S, psz = st.n_shards, st.page_size
+    full = [r // psz for r in st.local_rows]
+    total_full = sum(full)
+    for s, f in enumerate(full):
+        if f != max(0, -(-(total_full - s) // S)):
+            return False
+    partial = [s for s, r in enumerate(st.local_rows) if r % psz]
+    return not partial or partial == [total_full % S]
+
+
+def unshard_table(st: ShardedTable) -> Table:
+    """Reassemble the logical table of a round-robin layout (test
+    oracle and resharding)."""
+    S, n_pages = st.n_shards, st.n_pages
+    for s, lp in enumerate(st.local_pages):
+        if lp != len(range(s, n_pages, S)):
+            raise ValueError("only a round-robin page map can be unsharded")
+    shape = (n_pages, st.page_size)
+    data = torch.empty(shape + (st.n_attrs,), dtype=torch.int32,
+                       device=st.device)
+    begin = torch.empty(shape, dtype=torch.int32, device=st.device)
+    end = torch.empty(shape, dtype=torch.int32, device=st.device)
+    for s, lp in enumerate(st.local_pages):
+        data[s::S] = st.data[s, :lp]
+        begin[s::S] = st.begin_ts[s, :lp]
+        end[s::S] = st.end_ts[s, :lp]
+    return Table(data, begin, end, st.n_rows)
+
+
+def _stacked_slots(st: ShardedTable, rids: torch.Tensor) -> torch.Tensor:
+    """Flat index into the stacked (S * max_pages * page_size) slots of
+    global rids under the round-robin page map."""
+    psz, S = st.page_size, st.n_shards
+    gp, sl = rids // psz, rids % psz
+    return ((gp % S) * st.max_pages + gp // S) * psz + sl
+
+
+def sharded_insert_rows(st: ShardedTable, rows, ts, n_new: int,
+                        max_new: int | None = None) -> ShardedTable:
+    """Sharded INSERT, in place: the first ``n_new`` of ``rows`` append
+    at the global watermark, each row on the shard owning its global
+    page.  As in the reference, appends past the capacity, or onto a
+    local page the owning shard does not have (a layout that is not
+    round-robin), are dropped, and the local watermarks are re-derived
+    from the global one.  Masked-off writes are not parked anywhere."""
+    del max_new  # the row count is the tensor's
+    base, n_new = st.n_rows, int(n_new)
+    S, psz = st.n_shards, st.page_size
+    k = max(0, min(n_new, int(rows.shape[0]), st.capacity - base))
+    if k:
+        dev = st.device
+        rows = torch.as_tensor(rows, dtype=torch.int32, device=dev)[:k]
+        rids = base + torch.arange(k, device=dev)
+        gp = rids // psz
+        ok = gp // S < torch.tensor(st.local_pages, device=dev)[gp % S]
+        slots = _stacked_slots(st, rids[ok])
+        st.data.view(-1, st.n_attrs)[slots] = rows[ok]
+        st.begin_ts.view(-1)[slots] = int(ts)
+        st.end_ts.view(-1)[slots] = INF_TS
+    n_rows = min(base + n_new, st.capacity)
+    local = tuple(local_n_rows(n_rows, s, S, psz, lp)
+                  for s, lp in enumerate(st.local_pages))
+    return st._replace(local_rows=local, n_rows=n_rows)
+
+
+def sharded_update_rows(st: ShardedTable, attrs: tuple, los, his, set_attrs,
+                        set_vals, ts, max_new: int):
+    """Sharded MVCC UPDATE, bit-identical to ``update_rows`` on the
+    unsharded table: the first ``max_new`` matches in GLOBAL rid order
+    are terminated and re-appended.  Matches whose global rid falls at
+    or past the capacity (only on a layout that is not round-robin) are
+    not selectable, as in the reference.  Returns (new_table,
+    n_updated)."""
+    ts = int(ts)
+    match = conj_predicate_mask(st, attrs, los, his) & visible_mask(st, ts)
+    psz = st.page_size
+    gpage = st.global_page_ids()[:, :, None]
+    slot = torch.arange(psz, device=st.device)
+    rids = (gpage * psz + slot)[match]
+    rids = torch.sort(rids[rids < st.capacity]).values[:max_new]
+    n_upd = int(rids.numel())
+    if n_upd == 0:
+        return st, 0
+    slots = _stacked_slots(st, rids)
+    st.end_ts.view(-1)[slots] = ts  # terminate the old versions
+    new_rows = st.data.view(-1, st.n_attrs)[slots]  # a copy
+    set_attrs = torch.as_tensor(set_attrs, dtype=torch.long,
+                                device=st.device)
+    new_rows[:, set_attrs] = torch.as_tensor(
+        set_vals, dtype=torch.int32, device=st.device)
+    return sharded_insert_rows(st, new_rows, ts, n_upd), n_upd

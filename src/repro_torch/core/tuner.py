@@ -1,6 +1,9 @@
 """Predictive index tuner -- Algorithm 1 of the paper.
 
-Port of ``repro.core.tuner`` for plain tables.  Every tuning cycle
+Port of ``repro.core.tuner`` on plain and sharded storage (on sharded
+tables the cycle budget round-robins across shards in global page
+order, as in the reference without shard-aware tuning).  Every tuning
+cycle
 runs the observe-react-learn template:
 
   Stage I   workload classification (CART decision tree)
@@ -20,7 +23,8 @@ explicit hot-range-first page list -- the monitor window's predicate
 ranges on the leading key attribute, mapped to pages through the zone
 map, hottest pages first -- and a decay pass clears the coldest
 covered pages' bits while the built footprint exceeds the storage
-budget.  Shard-aware scheduling is not ported yet and raises.
+budget.  Shard-aware scheduling (per-shard quanta sized by forecast
+shard heat) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -48,8 +52,10 @@ from repro_torch.core.classifier import (
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database
 from repro_torch.core.index import (
+    ShardedIndex,
     build_pages_remaining,
     eligible_global_pages,
+    shard_remaining_pages,
 )
 
 
@@ -297,7 +303,10 @@ class PredictiveTuner:
         """Pages this building index still has to cover."""
         if b.coverage is not None:
             return int(self.db.coverage_pages_left(b))
-        return int(build_pages_remaining(b.vap, self.db.tables[b.desc.table]))
+        t = self.db.tables[b.desc.table]
+        if isinstance(b.vap, ShardedIndex):
+            return int(sum(shard_remaining_pages(b.vap, t)))
+        return int(build_pages_remaining(b.vap, t))
 
     # ---- coverage-bitmap scheduling (hot ranges, decay) ---------------
     def _range_heat(self, b, pages: np.ndarray):

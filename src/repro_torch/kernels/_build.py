@@ -32,6 +32,8 @@ SIGNATURES = {
     "filter_agg_launch": _PLANES + [_I] * 6 + [_P, _P, _P],
     "masked_filter_agg_launch": _PLANES + [_P] * 5 + [_I, _P, _I, _P, _I, _I,
                                                       _P, _P, _P],
+    "sharded_filter_agg_launch": _PLANES + [_P] * 6 + [_I, _P, _I, _I, _P,
+                                                       _P, _P],
 }
 
 _LIB = None

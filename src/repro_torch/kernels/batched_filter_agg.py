@@ -1,19 +1,22 @@
-"""K1 and K3: multi-query fused filter+aggregate table scans.
+"""K1, K3 and K4: multi-query fused filter+aggregate table scans.
 
 Ports of the Pallas TPU kernels ``repro.kernels.batched_filter_agg.
-batched_filter_agg`` (K1) and ``sharded_batched_filter_agg_masked``
-(K3).  One launch evaluates a whole batch of conjunctive
-range-aggregate queries over shared column planes; the CUDA C++
-kernels are in ``csrc/filter_agg.cu`` (``batched_filter_agg_launch``
-and ``masked_filter_agg_launch``, where the source note explains the
-design and what bounds them).  K3 scans only the pages a coverage
-bitmap leaves uncovered, over S stacked shards.
+batched_filter_agg`` (K1), ``sharded_batched_filter_agg`` (K4) and
+``sharded_batched_filter_agg_masked`` (K3).  One launch evaluates a
+whole batch of conjunctive range-aggregate queries over shared column
+planes; the CUDA C++ kernels are in ``csrc/filter_agg.cu``
+(``batched_filter_agg_launch``, ``sharded_filter_agg_launch`` and
+``masked_filter_agg_launch``, where the source note explains the
+design and what bounds them).  K4 scans S stacked shards from
+per-(shard, query) local start pages; K3 scans only the pages a
+coverage bitmap leaves uncovered, over S stacked shards.
 
-``batched_filter_agg`` and ``sharded_batched_filter_agg_masked`` are
-the wrappers: for tensors on the CPU they take the plain PyTorch
-version beside them (``..._plain``); for CUDA tensors they launch the
-kernel or raise.  ``launches`` counts K1 launches, ``masked_launches``
-K3 launches.
+``batched_filter_agg``, ``sharded_batched_filter_agg`` and
+``sharded_batched_filter_agg_masked`` are the wrappers: for tensors on
+the CPU they take the plain PyTorch version beside them
+(``..._plain``); for CUDA tensors they launch the kernel or raise.
+``launches`` counts K1 launches, ``sharded_launches`` K4 launches and
+``masked_launches`` K3 launches.
 
 Column planes are (n_pages, page_size) int32 and may be strided views
 of the table's (n_pages, page_size, n_attrs) array (``data[..., a]``):
@@ -34,6 +37,7 @@ import torch
 from repro_torch.kernels.ref import (
     batched_filter_agg_ref,
     sharded_batched_filter_agg_masked_ref,
+    sharded_batched_filter_agg_ref,
 )
 
 I32_MIN = -(2**31)
@@ -43,6 +47,7 @@ I32_MAX = 2**31 - 1
 TILE_ROWS = 4096
 
 launches = 0  # K1 launches since the last reset (plain runs excluded)
+sharded_launches = 0  # K4 launches since the last reset
 masked_launches = 0  # K3 launches since the last reset
 
 
@@ -80,6 +85,14 @@ def check_planes(planes, ndim=2, names=("pred0", "pred1", "agg",
         raise ValueError(f"column planes must be {ndim}-D, got "
                          f"{tuple(shape)}")
     return [_row_stride(x, shape, device, n) for x, n in zip(planes, names)]
+
+
+def _plane_args(planes, strides):
+    """The launch's (pointer, row stride) pair of every plane."""
+    out = []
+    for x, s in zip(planes, strides):
+        out += [x.data_ptr(), s]
+    return out
 
 
 def batched_filter_agg_plain(pred0, pred1, agg, begin_ts, end_ts, los0,
@@ -148,13 +161,10 @@ def batched_filter_agg(
 
     global launches
     bp = int(block_pages or tile_pages(n_pages, page_size))
-    plane_args = []
-    for x, s in zip(planes, strides):
-        plane_args += [x.data_ptr(), s]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().batched_filter_agg_launch(
-            *plane_args,
+            *_plane_args(planes, strides),
             n_pages * page_size,
             page_size,
             bp * page_size,
@@ -167,6 +177,96 @@ def batched_filter_agg(
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     launches += 1
+    return out_sum, out_cnt
+
+
+def sharded_batched_filter_agg_plain(pred0, pred1, agg, begin_ts, end_ts,
+                                     los0, his0, los1, his1, tss,
+                                     start_pages, local_pages):
+    """Plain PyTorch version of K4: the oracle
+    ``ref.sharded_batched_filter_agg_ref``."""
+    return sharded_batched_filter_agg_ref(
+        pred0, pred1, agg, begin_ts, end_ts, los0, his0, los1, his1, tss,
+        start_pages, local_pages)
+
+
+def sharded_batched_filter_agg(
+    pred0,
+    pred1,
+    agg,
+    begin_ts,
+    end_ts,
+    los0,
+    his0,
+    los1,
+    his1,
+    tss,
+    start_pages,
+    local_pages,
+    block_pages: int | None = None,
+):
+    """Multi-shard multi-query filter+aggregate scan (K4).
+
+    Column planes are (S, n_pages, page_size) int32 stacked per shard;
+    per-query operands ``los0/his0/los1/his1/tss`` are (n_queries,)
+    int32; ``start_pages`` (S, n_queries) int32 holds each (shard,
+    query) pair's LOCAL stitch point (zeros = full scans);
+    ``local_pages`` (S,) int32 is each shard's real page count -- pages
+    at or past it contribute nothing.  Returns (sums, counts), each
+    (n_queries,) int32, summed over shards.
+    """
+    planes = (pred0, pred1, agg, begin_ts, end_ts)
+    strides = check_planes(planes, ndim=3)
+    dev = pred0.device
+    n_shards, n_pages, page_size = pred0.shape
+    nq = los0.shape[0]
+    ops = [
+        _query_operand(x, nq, dev, n)
+        for x, n in zip((los0, his0, los1, his1, tss),
+                        ("los0", "his0", "los1", "his1", "tss"))
+    ]
+    local_pages = _query_operand(local_pages, n_shards, dev, "local_pages")
+    if not isinstance(start_pages, torch.Tensor) or (
+            start_pages.dtype != torch.int32
+            or tuple(start_pages.shape) != (n_shards, nq)):
+        raise ValueError(f"start_pages must be ({n_shards}, {nq}) int32")
+    if start_pages.device != dev:
+        raise ValueError(f"start_pages is on {start_pages.device}, "
+                         f"expected {dev}")
+    start_pages = start_pages.contiguous()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no K4 kernel for device {dev}")
+    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    if nq == 0 or n_pages == 0 or n_shards == 0:
+        return out_sum, out_cnt
+    if dev.type == "cpu":
+        return sharded_batched_filter_agg_plain(
+            *planes, *ops, start_pages, local_pages)
+    from repro_torch.kernels._build import library
+
+    global sharded_launches
+    bp = int(block_pages or tile_pages(n_pages, page_size))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().sharded_filter_agg_launch(
+            *_plane_args(planes, strides),
+            n_shards * n_pages * page_size,
+            page_size,
+            bp * page_size,
+            *[x.data_ptr() for x in ops],
+            start_pages.data_ptr(),
+            nq,
+            local_pages.data_ptr(),
+            n_shards,
+            n_pages,
+            out_sum.data_ptr(),
+            out_cnt.data_ptr(),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: CUDA error {err}")
+    sharded_launches += 1
     return out_sum, out_cnt
 
 
@@ -240,13 +340,10 @@ def sharded_batched_filter_agg_masked(
 
     global masked_launches
     bp = int(block_pages or tile_pages(n_pages, page_size))
-    plane_args = []
-    for x, s in zip(planes, strides):
-        plane_args += [x.data_ptr(), s]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().masked_filter_agg_launch(
-            *plane_args,
+            *_plane_args(planes, strides),
             n_shards * n_pages * page_size,
             page_size,
             bp * page_size,

@@ -8,10 +8,15 @@
 //   K3  src/repro/kernels/batched_filter_agg.py:483
 //       sharded_batched_filter_agg_masked
 //       (kernel body _masked_sharded_kernel) -> masked_filter_agg_launch
+//   K4  src/repro/kernels/batched_filter_agg.py:308
+//       sharded_batched_filter_agg
+//       (kernel body _sharded_kernel)   -> sharded_filter_agg_launch
 // K2 is the B = 1 instance of K1: both entry points run the same tile
 // body, so a one-query batch is bit-identical to the single-query scan.
 // K3 runs the same tile body over the UNCOVERED pages of a coverage
-// bitmap (notes at masked_filter_agg_kernel below).
+// bitmap (notes at masked_filter_agg_kernel below), K4 over S stacked
+// shards with per-(shard, query) local start pages (notes at
+// sharded_filter_agg_kernel).
 //
 // Semantics (src/repro/kernels/ref.py): for each query q, SUM(agg) and
 // COUNT(*) over the rows with
@@ -279,6 +284,69 @@ masked_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
   }
 }
 
+// K4: K1 over S stacked shards of n_pages pages each.  Grid (tiles of
+// one shard, shard), as K3's.  What bounds it is K1's: bytes, five
+// int32 reads per row of the pages at or past each shard's smallest
+// local start.  start_pages is (S, nq), the LOCAL stitch point of each
+// (shard, query) pair; a row of shard s, local page p counts for query
+// q iff start_pages[s, q] <= p < local_pages[s].
+//
+// The TPU kernel clamps each shard's block coordinate into the window
+// [first block any query needs, last block holding real pages], so
+// prefix blocks and trailing padding blocks revisit a resident block
+// and skip their DMA.  Here a block returns before it loads a row in
+// the same two cases: its tile lies at or past local_pages[s] (K3's
+// clamp; padding rows are never read), or it lies wholly below every
+// query's local start (K1's min_start exit, per shard).  Inside a live
+// tile scan_tile's page test runs on stacked page ids, so the block
+// stages each query's start as s * n_pages + start_pages[s, q], the
+// local start clamped into [0, n_pages] first so the sum cannot
+// overflow.
+__global__ void __launch_bounds__(kThreads)
+sharded_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
+                          const int32_t* __restrict__ lo0,
+                          const int32_t* __restrict__ hi0,
+                          const int32_t* __restrict__ lo1,
+                          const int32_t* __restrict__ hi1,
+                          const int32_t* __restrict__ ts,
+                          const int32_t* __restrict__ start_pages, int nq,
+                          const int32_t* __restrict__ local_pages,
+                          unsigned* out_sum, unsigned* out_cnt) {
+  __shared__ Bounds qs[kQueryChunk];
+  __shared__ int min_start;
+  const int s = blockIdx.y;
+  const long long first = (long long)blockIdx.x * tile_pages;
+  long long last = first + tile_pages;  // exclusive
+  if (last > n_pages) last = n_pages;
+  if (last > local_pages[s]) last = local_pages[s];
+  if (first >= last) return;  // padding past the shard's real pages
+
+  const int32_t* starts = start_pages + (long long)s * nq;
+  if (threadIdx.x == 0) min_start = INT32_MAX;
+  __syncthreads();
+  for (int q = threadIdx.x; q < nq; q += kThreads) {
+    atomicMin(&min_start, starts[q]);
+  }
+  __syncthreads();
+  if (last - 1 < min_start) return;  // inside every query's prefix
+
+  const long long base = (long long)s * n_pages;
+  const long long row0 = (base + first) * p.page_size;
+  const long long row_end = (base + last) * p.page_size;
+  for (int qc = 0; qc < nq; qc += kQueryChunk) {
+    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      int st = starts[qc + q];
+      st = st < 0 ? 0 : (st > n_pages ? n_pages : st);
+      qs[q] = Bounds{lo0[qc + q], hi0[qc + q], lo1[qc + q],
+                     hi1[qc + q], ts[qc + q], (int)(base + st)};
+    }
+    __syncthreads();
+    scan_tile<false>(p, qs, n, row0, row_end, Coverage{}, out_sum + qc,
+                     out_cnt + qc);
+  }
+}
+
 Planes make_planes(const void* pred0, long long stride0, const void* pred1,
                    long long stride1, const void* agg, long long stride_agg,
                    const void* begin_ts, long long stride_begin,
@@ -371,6 +439,33 @@ extern "C" int masked_filter_agg_launch(
       static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
       static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts), nq,
       static_cast<const uint32_t*>(words), n_words,
+      static_cast<const int32_t*>(local_pages),
+      static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sharded_filter_agg_launch(
+    const void* pred0, long long stride0, const void* pred1,
+    long long stride1, const void* agg, long long stride_agg,
+    const void* begin_ts, long long stride_begin, const void* end_ts,
+    long long stride_end, long long n_rows, int page_size, int tile_rows,
+    const void* lo0, const void* hi0, const void* lo1, const void* hi1,
+    const void* ts, const void* start_pages, int nq,
+    const void* local_pages, int n_shards, int n_pages, void* out_sum,
+    void* out_cnt, void* stream) {
+  if (n_rows <= 0 || nq <= 0 || n_shards <= 0) return 0;
+  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
+                               stride_agg, begin_ts, stride_begin, end_ts,
+                               stride_end, n_rows, page_size, tile_rows);
+  const int tile_pages = tile_rows / page_size;
+  const long long n_tiles = ((long long)n_pages + tile_pages - 1) / tile_pages;
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_shards);
+  sharded_filter_agg_kernel<<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      p, n_pages, tile_pages, static_cast<const int32_t*>(lo0),
+      static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
+      static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts),
+      static_cast<const int32_t*>(start_pages), nq,
       static_cast<const int32_t*>(local_pages),
       static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 """Table adapters around the scan kernels.
 
-Port of ``repro.kernels.ops`` for plain tables: ``scan_table`` /
+Port of ``repro.kernels.ops``: ``scan_table`` /
 ``scan_table_hybrid`` (K2), ``scan_table_batched`` (K1) and
 ``scan_table_batched_masked`` (K3, one shard) adapt the engine's Table
 layout -- columns stacked in one (n_pages, page_size, n_attrs) array
@@ -9,8 +9,9 @@ views of ``table.data``; nothing is copied.  The launch's tile is
 ``batched_filter_agg.tile_pages`` unless ``block_pages`` is given;
 results do not depend on it.
 
-The sharded adapters (K4, and K3 over stacked shards) are not ported
-yet and raise.
+``scan_shards_batched`` (K4) and ``scan_shards_batched_masked`` (K3)
+adapt a ``ShardedTable`` -- already the stacked (S, max_pages,
+page_size, n_attrs) layout, padding pages invisible -- the same way.
 """
 
 from __future__ import annotations
@@ -144,17 +145,6 @@ def scan_table_batched(
     )
 
 
-def _not_ported(name, kernel, slice_name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} needs kernel {kernel}, which lands with the "
-            f"{slice_name} slice of the port"
-        )
-
-    fn.__name__ = name
-    return fn
-
-
 def scan_table_batched_masked(
     table, attrs, los, his, tss, agg_attr, words, block_pages=None
 ):
@@ -186,6 +176,67 @@ def scan_table_batched_masked(
     )
 
 
-scan_shards_batched = _not_ported("scan_shards_batched", "K4", "sharded")
-scan_shards_batched_masked = _not_ported(
-    "scan_shards_batched_masked", "K3 over stacked shards", "sharded")
+def scan_shards_batched(
+    st, attrs, los, his, tss, agg_attr, start_pages, block_pages=None
+):
+    """Multi-shard multi-query filter+aggregate via K4.
+
+    ``st`` is a ``ShardedTable``; queries share the constrained
+    ``attrs`` (1 or 2 columns) and ``agg_attr``; ``los``/``his`` are
+    (n_queries, len(attrs)) per-query inclusive bounds, ``tss``
+    (n_queries,) snapshot timestamps and ``start_pages`` the (n_shards,
+    n_queries) table of per-shard LOCAL stitch points (zeros = full
+    scans).  Returns (sums, counts), each (n_queries,) int32, summed
+    over shards.
+    """
+    _check_attrs(attrs)
+    dev = st.data.device
+    pred0, pred1, los0, his0, los1, his1 = _batch_bounds(
+        st.data, attrs, los, his
+    )
+    return _bfa.sharded_batched_filter_agg(
+        pred0,
+        pred1,
+        st.data[..., agg_attr],
+        st.begin_ts,
+        st.end_ts,
+        los0,
+        his0,
+        los1,
+        his1,
+        torch.as_tensor(tss, dtype=torch.int32, device=dev),
+        torch.as_tensor(start_pages, dtype=torch.int32, device=dev),
+        st.local_pages_tensor(),
+        block_pages=block_pages,
+    )
+
+
+def scan_shards_batched_masked(
+    st, attrs, los, his, tss, agg_attr, words, block_pages=None
+):
+    """Masked-stitch table half over every shard of a ``ShardedTable``
+    in one K3 launch: exactly the UNCOVERED pages of each shard's
+    packed coverage words ``words`` (S, W) int32
+    (``PageCoverage.packed_words(S, max_pages)``).  Same operands as
+    ``scan_shards_batched`` with the start pages replaced by the
+    words."""
+    _check_attrs(attrs)
+    dev = st.data.device
+    pred0, pred1, los0, his0, los1, his1 = _batch_bounds(
+        st.data, attrs, los, his
+    )
+    return _bfa.sharded_batched_filter_agg_masked(
+        pred0,
+        pred1,
+        st.data[..., agg_attr],
+        st.begin_ts,
+        st.end_ts,
+        los0,
+        his0,
+        los1,
+        his1,
+        torch.as_tensor(tss, dtype=torch.int32, device=dev),
+        torch.as_tensor(words, dtype=torch.int32, device=dev),
+        st.local_pages_tensor(),
+        block_pages=block_pages,
+    )

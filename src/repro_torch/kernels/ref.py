@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the scan kernels.
 
-The semantics contracts, ported from ``repro.kernels.ref``: every
+The semantics contracts, ported from ``repro.kernels.ref`` (K3 and K4
+follow the reference kernels' docstrings): every
 kernel of this package must equal these exactly (integer results)
 across the shapes in tests/test_torch_kernels.py.  Sums are taken in
 int64 and cast back to int32, which wraps exactly like the
@@ -83,6 +84,48 @@ def batched_filter_agg_ref(
         )
         sums.append(s)
         cnts.append(c)
+    return torch.stack(sums), torch.stack(cnts)
+
+
+def sharded_batched_filter_agg_ref(
+    pred0,
+    pred1,
+    agg,
+    begin_ts,
+    end_ts,
+    los0,
+    his0,
+    los1,
+    his1,
+    tss,
+    start_pages,
+    local_pages,
+):
+    """Multi-shard multi-query scan (kernel K4).
+
+    Planes are (S, n_pages, page_size) int32 stacked per shard;
+    per-query operands (n_queries,); ``start_pages`` (S, n_queries) the
+    per-(shard, query) LOCAL stitch points; ``local_pages`` (S,) each
+    shard's real page count.  Per query, the rows of
+    ``filter_agg_ref`` summed over shards s and local pages p with
+    ``start_pages[s, q] <= p < local_pages[s]`` (padding pages past
+    ``local_pages`` contribute nothing).  Returns (sums, counts), each
+    (n_queries,) int32.
+    """
+    S, n_pages, _ = pred0.shape
+    page = torch.arange(n_pages, device=pred0.device)
+    real = (page[None, :] < local_pages[:, None])[:, :, None]
+    sums, cnts = [], []
+    for q in range(los0.shape[0]):
+        mask = (pred0 >= los0[q]) & (pred0 <= his0[q])
+        mask &= (pred1 >= los1[q]) & (pred1 <= his1[q])
+        mask &= (begin_ts <= tss[q]) & (tss[q] < end_ts)
+        mask &= real & (page[None, :, None] >= start_pages[:, q, None, None])
+        sums.append(i32_sum(torch.where(mask, agg, 0)))
+        cnts.append(i32_sum(mask))
+    if not sums:
+        z = torch.zeros((0,), dtype=torch.int32, device=pred0.device)
+        return z, z.clone()
     return torch.stack(sums), torch.stack(cnts)
 
 

@@ -176,8 +176,12 @@ def test_unported_features_raise():
         db.execute(gen.high_s())
     with pytest.raises(NotImplementedError):
         db.create_index(P.IndexDescriptor("narrow", (1,)), "vbp")
-    with pytest.raises(NotImplementedError):
-        P.Database(dict(src.tables), num_shards=2)
+    # Sharded storage is ported: the tables are partitioned round-robin
+    # (parity with the reference in tests/test_torch_sharded.py).
+    sharded = P.Database(dict(src.tables), num_shards=2)
+    assert sharded.num_shards == 2
+    assert isinstance(sharded.tables["narrow"], P.ShardedTable)
+    assert sharded.execute_batch([gen.low_s()])[0].count >= 0
     # Coverage bitmaps are ported: crack-on-scan and decay now run.
     db.crack_on_scan = True
     db.index_decay = True

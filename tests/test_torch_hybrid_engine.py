@@ -198,10 +198,21 @@ def test_engine_single_scan_and_unported_paths():
                            use_kernel=use_kernel, coverage=pview)
         _assert_same(r, p, R_hs.BatchScanResult._fields)
         assert eng.last_tier == tier
-    for path in ("hybrid_ps", "pure_vbp"):
-        with pytest.raises(NotImplementedError):
-            eng.scan_batch(pt, path, pi, (1,), (1,), None, None, None, 3)
+    # ``hybrid_ps`` is ported: on a plain table (no shards) it is the
+    # hybrid scan, as in the reference.  VBP scans still raise.
+    for use_kernel, tier in ((False, "single"), (True, "kernel")):
+        r = RefEngine().scan_batch(rt, "hybrid_ps", ri, (1,), (1,), blos,
+                                   bhis, btss, 3, use_kernel=use_kernel)
+        p = eng.scan_batch(pt, "hybrid_ps", pi, (1,), (1,),
+                           torch.from_numpy(blos), torch.from_numpy(bhis),
+                           torch.from_numpy(btss), 3, use_kernel=use_kernel)
+        _assert_same(r, p, R_hs.BatchScanResult._fields)
+        assert eng.last_tier == tier
     with pytest.raises(NotImplementedError):
+        eng.scan_batch(pt, "pure_vbp", pi, (1,), (1,), None, None, None, 3)
+    # Sharded storage is ported (tests/test_torch_sharded.py); anything
+    # else is no table.
+    with pytest.raises(TypeError):
         eng.scan_batch(object(), "table", None, (), (1,), None, None, None,
                        3)
 

@@ -1,4 +1,4 @@
-"""Parity of the port's scan kernels K1/K2 with the Pallas kernels.
+"""Parity of the port's scan kernels K1/K2/K4 with the Pallas kernels.
 
 The port's wrappers run their plain PyTorch versions here (CPU
 tensors); the reference runs its Pallas kernels in interpret mode, as
@@ -15,10 +15,12 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels.batched_filter_agg import (
     batched_filter_agg as ref_batched,
+    sharded_batched_filter_agg as ref_sharded,
 )
 from repro.kernels.filter_agg import filter_agg as ref_single
 from repro.core.table import load_table as ref_load_table
 from repro_torch.core.convert import table_from_reference
+from repro_torch.core.table import shard_table
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import batched_filter_agg as bfa
 from repro_torch.kernels import filter_agg as fa
@@ -169,6 +171,121 @@ def test_k1_result_independent_of_tile_size():
     assert bfa.tile_pages(3, 64) == 3
 
 
+# ---------------------------------------------------------------------------
+# K4: the sharded scan (S stacked shards, per-(shard, query) local starts)
+# ---------------------------------------------------------------------------
+
+K4_PAGES = 21  # not a multiple of the Pallas block (8)
+
+
+def _k4_inputs(S, start_kind, seed):
+    """Stacked (S, K4_PAGES, PSZ) planes with ragged real page counts
+    (padding pages invisible), 6 queries and an (S, 6) table of local
+    start pages."""
+    rng = np.random.default_rng(seed)
+    data, begin, end = _planes(seed, n_pages=S * K4_PAGES, wrap=True)
+    shape = (S, K4_PAGES, PSZ)
+    data = data.reshape(shape + (N_ATTRS,))
+    begin, end = begin.reshape(shape), end.reshape(shape)
+    local = np.array([K4_PAGES - 5 * s for s in range(S)], np.int32)
+    for s in range(S):
+        begin[s, local[s]:] = I32_MAX
+    q = _queries(seed, B=6, n_attrs_pred=2, start_kind="zero", wrap=True)
+    B = 6
+    g = rng.integers(0, S * K4_PAGES, size=B)
+    sid = np.arange(S)[:, None]
+    starts = {
+        "zero": np.zeros((S, B)),
+        "global": np.maximum((g[None, :] - sid + S - 1) // S, 0),
+        "divergent": rng.integers(0, K4_PAGES, size=(S, B)),
+        "beyond": local[:, None] + rng.integers(0, 4, size=(S, B)),
+    }[start_kind].astype(np.int32)
+    return data, begin, end, q[:5], starts, local
+
+
+def _k4_views(data, begin, end, as_torch):
+    conv = torch.from_numpy if as_torch else jnp.asarray
+    d = conv(data)
+    return d[..., 1], d[..., 3], d[..., 4], conv(begin), conv(end)
+
+
+@pytest.mark.parametrize("start_kind", ["zero", "global", "divergent",
+                                        "beyond"])
+@pytest.mark.parametrize("S", [1, 3])
+def test_k4_plain_matches_pallas(S, start_kind):
+    data, begin, end, q, starts, local = _k4_inputs(S, start_kind, S + 7)
+    ref = ref_sharded(*_k4_views(data, begin, end, False),
+                      *[jnp.asarray(x) for x in q], jnp.asarray(starts),
+                      jnp.asarray(local), block_pages=8, interpret=True)
+    args = (*_k4_views(data, begin, end, True),
+            *[torch.from_numpy(x) for x in q], torch.from_numpy(starts),
+            torch.from_numpy(local))
+    before = bfa.sharded_launches
+    out = bfa.sharded_batched_filter_agg(*args)
+    assert bfa.sharded_launches == before  # the CPU takes the plain version
+    oracle = port_ref.sharded_batched_filter_agg_ref(*args)
+    for r, o, orc in zip(ref, out, oracle):
+        assert o.dtype == torch.int32
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+        np.testing.assert_array_equal(orc.numpy(), np.asarray(r))
+    if start_kind == "beyond":
+        assert not out[1].any()
+
+
+@pytest.mark.parametrize("start_kind", ["zero", "divergent"])
+def test_k4_one_shard_equals_k1(start_kind):
+    data, begin, end, q, starts, local = _k4_inputs(1, start_kind, 5)
+    local[0] = K4_PAGES
+    k4 = bfa.sharded_batched_filter_agg(
+        *_k4_views(data, begin, end, True),
+        *[torch.from_numpy(x) for x in q], torch.from_numpy(starts),
+        torch.from_numpy(local))
+    k1 = bfa.batched_filter_agg(
+        *[x[0] for x in _k4_views(data, begin, end, True)],
+        *[torch.from_numpy(x) for x in q], torch.from_numpy(starts[0]))
+    assert [x.tolist() for x in k4] == [x.tolist() for x in k1]
+
+
+def test_k4_zero_starts_equal_a_full_scan():
+    """Zero local starts over S shards = K1 from page 0 over all
+    stacked pages (padding pages are invisible)."""
+    data, begin, end, q, starts, local = _k4_inputs(3, "zero", 6)
+    k4 = bfa.sharded_batched_filter_agg(
+        *_k4_views(data, begin, end, True),
+        *[torch.from_numpy(x) for x in q], torch.from_numpy(starts),
+        torch.from_numpy(local))
+    flat = [x.reshape(-1, PSZ) for x in _k4_views(data, begin, end, True)]
+    k1 = bfa.batched_filter_agg(*flat, *[torch.from_numpy(x) for x in q],
+                                torch.zeros(6, dtype=torch.int32))
+    assert [x.tolist() for x in k4] == [x.tolist() for x in k1]
+
+
+def test_k4_wrapper_validates_operands():
+    data, begin, end, q, starts, local = _k4_inputs(2, "zero", 8)
+    planes = _k4_views(data, begin, end, True)
+    qt = [torch.from_numpy(x) for x in q]
+    with pytest.raises(ValueError, match="start_pages"):
+        bfa.sharded_batched_filter_agg(*planes, *qt,
+                                       torch.from_numpy(starts[:1]),
+                                       torch.from_numpy(local))
+    with pytest.raises(ValueError, match="local_pages"):
+        bfa.sharded_batched_filter_agg(*planes, *qt,
+                                       torch.from_numpy(starts),
+                                       torch.from_numpy(local[:1]))
+    with pytest.raises(ValueError, match="3-D"):
+        bfa.sharded_batched_filter_agg(*[x[0] for x in planes], *qt,
+                                       torch.from_numpy(starts),
+                                       torch.from_numpy(local))
+    meta = [torch.empty((2, 4, 8), dtype=torch.int32, device="meta")] * 5
+    mq = [torch.zeros((6,), dtype=torch.int32, device="meta")] * 5
+    before = bfa.sharded_launches
+    with pytest.raises(ValueError, match="no K4 kernel"):
+        bfa.sharded_batched_filter_agg(
+            *meta, *mq, torch.zeros((2, 6), dtype=torch.int32, device="meta"),
+            torch.zeros((2,), dtype=torch.int32, device="meta"))
+    assert bfa.sharded_launches == before
+
+
 def _ref_and_port_table(seed):
     rng = np.random.default_rng(seed)
     vals = rng.integers(0, 1000, size=(900, N_ATTRS)).astype(np.int32)
@@ -204,11 +321,11 @@ def test_ops_adapters_match_reference(attrs):
 
 
 def test_unported_adapters_raise():
-    for fn in (ops.scan_shards_batched, ops.scan_shards_batched_masked):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            fn(None, (1,), None, None, None, 2, None)
-    # The plain-table masked adapter is ported (K3, one shard): an empty
-    # bitmap scans every page, as K1 from page 0 does.
+    """Every adapter is ported now.  On one table: the masked adapter
+    (K3) with an empty bitmap scans every page, as K1 from page 0 does;
+    the sharded adapters over a one-shard ``ShardedTable`` -- K4 with
+    zero starts, K3 with an empty bitmap -- equal it too.  Predicates
+    on more than two columns still raise."""
     _, pt = _ref_and_port_table(seed=3)
     los = torch.tensor([[100], [400]], dtype=torch.int32)
     his, tss = los + 300, torch.zeros(2, dtype=torch.int32)
@@ -216,6 +333,14 @@ def test_unported_adapters_raise():
     got = ops.scan_table_batched_masked(pt, (1,), los, his, tss, 2, words)
     want = ops.scan_table_batched(pt, (1,), los, his, tss, 2)
     assert [x.tolist() for x in got] == [x.tolist() for x in want]
+    st = shard_table(pt, 1)
+    starts = torch.zeros((1, 2), dtype=torch.int32)
+    for got in (ops.scan_shards_batched(st, (1,), los, his, tss, 2, starts),
+                ops.scan_shards_batched_masked(st, (1,), los, his, tss, 2,
+                                               words)):
+        assert [x.tolist() for x in got] == [x.tolist() for x in want]
+    with pytest.raises(ValueError, match="1 or 2 predicate"):
+        ops.scan_shards_batched(st, (1, 2, 3), los, his, tss, 2, starts)
 
 
 def test_wrappers_import_without_nvcc_and_never_fall_back(monkeypatch,

@@ -1,8 +1,8 @@
-"""The port's CUDA kernels K1/K2/K3 against their plain PyTorch versions.
+"""The port's CUDA kernels K1-K4 against their plain PyTorch versions.
 
-These need the card: each test skips without a CUDA device.  The file
-imports nothing of JAX, so it runs on a machine that has only the
-port's dependencies:
+These need the card (marker ``cuda``): each test skips without a CUDA
+device.  The file imports nothing of JAX, so it runs on a machine that
+has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py
 """
@@ -15,6 +15,8 @@ from repro_torch.kernels import batched_filter_agg as bfa
 from repro_torch.kernels import filter_agg as fa
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -140,3 +142,73 @@ def test_cuda_k3_rejects_short_coverage_words(cuda):
             *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
             words[:, :-1].to(cuda), local.to(cuda))
     assert bfa.masked_launches == before
+
+
+def _sharded_inputs(seed, S, start_kind, n_pages=333, psz=32, B=9):
+    """Stacked (S, n_pages, psz) planes with ragged real page counts
+    (padding pages invisible), queries, and an (S, B) table of local
+    start pages."""
+    planes, q, _, local = _masked_inputs(seed, S, n_pages, psz)
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, S * n_pages, size=B)
+    sid = np.arange(S)[:, None]
+    starts = {
+        "zero": np.zeros((S, B)),
+        "global": np.maximum((g[None, :] - sid + S - 1) // S, 0),
+        "divergent": rng.integers(0, n_pages, size=(S, B)),
+        "beyond": local.numpy()[:, None] + rng.integers(0, 4, size=(S, B)),
+    }[start_kind].astype(np.int32)
+    return planes, q, torch.from_numpy(starts), local
+
+
+@pytest.mark.parametrize("start_kind", ["zero", "global", "divergent",
+                                        "beyond"])
+@pytest.mark.parametrize("block_pages", [None, 1, 7, 40])
+@pytest.mark.parametrize("S", [1, 4])
+def test_cuda_k4_matches_plain(cuda, S, block_pages, start_kind):
+    planes, q, starts, local = _sharded_inputs(S + 11, S, start_kind)
+    before = bfa.sharded_launches
+    s, c = bfa.sharded_batched_filter_agg(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        starts.to(cuda), local.to(cuda), block_pages=block_pages)
+    torch.cuda.synchronize()
+    assert bfa.sharded_launches == before + 1
+    ps, pc = bfa.sharded_batched_filter_agg_plain(*planes, *q, starts,
+                                                  local)
+    assert torch.equal(s.cpu(), ps) and torch.equal(c.cpu(), pc)
+    if start_kind == "beyond":  # every tile returns before loading a row
+        assert not c.any() and not s.any()
+
+
+def test_cuda_k4_one_shard_equals_k1(cuda):
+    planes, q, starts, local = _sharded_inputs(12, 1, "divergent")
+    local[0] = planes[0].shape[1]
+    s4, c4 = bfa.sharded_batched_filter_agg(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        starts.to(cuda), local.to(cuda))
+    s1, c1 = bfa.batched_filter_agg(*[x[0].to(cuda) for x in planes],
+                                    *[x.to(cuda) for x in q],
+                                    starts[0].to(cuda))
+    assert torch.equal(s4, s1) and torch.equal(c4, c1)
+
+
+def test_cuda_k4_zero_starts_equal_a_full_scan(cuda):
+    planes, q, starts, local = _sharded_inputs(13, 4, "zero")
+    s4, c4 = bfa.sharded_batched_filter_agg(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        starts.to(cuda), local.to(cuda))
+    flat = [x.reshape(-1, x.shape[-1]).to(cuda) for x in planes]
+    s1, c1 = bfa.batched_filter_agg(
+        *flat, *[x.to(cuda) for x in q],
+        torch.zeros(q[0].shape[0], dtype=torch.int32, device=cuda))
+    assert torch.equal(s4, s1) and torch.equal(c4, c1)
+
+
+def test_cuda_k4_rejects_bad_start_pages(cuda):
+    planes, q, starts, local = _sharded_inputs(14, 2, "zero")
+    before = bfa.sharded_launches
+    with pytest.raises(ValueError, match="start_pages"):
+        bfa.sharded_batched_filter_agg(
+            *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+            starts[:, :-1].to(cuda), local.to(cuda))
+    assert bfa.sharded_launches == before
