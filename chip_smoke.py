@@ -4,7 +4,8 @@
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # one burst of phases 3, 5, 7(a)
                                      # and 7(c), tables in
-                                     # build/profile/
+                                     # build/profile/, and the device
+                                     # time of the index half's gathers
 
 Phases, each asserted (any failure exits non-zero):
 
@@ -12,9 +13,15 @@ Phases, each asserted (any failure exits non-zero):
    (K1, K2, K3, K4) from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a.
 2. Kernels against their plain PyTorch versions on the card at the
-   paper's table size (58,594 pages x 256 rows, columns read in place
-   out of a 21-attribute table, MVCC gaps, values that wrap int32),
-   B in {1, 8, 32} with mixed start pages: bit-equal, timed.
+   paper's table size (58,594 pages x 256 rows, column planes of a
+   21-attribute table stored attribute-major as the port stores every
+   table, MVCC gaps, values that wrap int32), B in {1, 8, 32} with
+   mixed start pages: bit-equal, timed, with each time's share of its
+   bound.  Each kernel row carries three times: ``kernel_ms``, the
+   event time of one call from an idle card (the wrapper's host work
+   included; ``event_floor`` is that time for no work), ``device_ms``,
+   the call's device work alone, and ``host_ms``, the host clock's time
+   of the call.
 3. The main path at the paper's scale: ``make_tuner_db(10M rows)`` on
    the card in two databases from one seed.  Both take the same read
    bursts (16 LOW-S / MOD-S scans at 1% selectivity), UPDATE / INSERT
@@ -52,7 +59,9 @@ Phases, each asserted (any failure exits non-zero):
    benchmark's 36/4/4/4 skewed layout at the paper's scale (29,295 +
    3 x 3,255 pages).  Bit-equal everywhere; zero starts and the mapped
    global stitch equal K1 on the unsharded table, one shard equals K1,
-   starts past the real pages return zeros.
+   starts past the real pages return zeros.  The B = 8 cases (among
+   them the global stitch, starts past ``local_pages`` and the skewed
+   zero starts) are summed up on one ``sharded_kernel_b8`` line.
 7. The sharded main path at 10M rows, a K4 twin against a plain twin:
    (a) phase 3's workload on ``Database(..., num_shards=4)`` -- every
    stats field, the tuning work and the clock equal phase 3's, burst
@@ -118,8 +127,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n=25, warm=3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events per call)."""
+# Cycles the card spins before each timed kernel call (~1 ms at the
+# H100's 1.98 GHz), so that the host has enqueued the whole call before
+# the card reaches it.
+AHEAD_CYCLES = 2_000_000
+
+
+def cuda_ms(fn, n=25, warm=3, ahead=False, host=None) -> float:
+    """Median time of ``fn`` in ms between CUDA events recorded around
+    each call.  Without ``ahead`` the card is idle when the call starts,
+    so the time includes the host's work to enqueue it (the call time,
+    ``kernel_ms``); with ``ahead`` the card first spins ``AHEAD_CYCLES``
+    while the host enqueues, so the events time the call's device work
+    alone (``device_ms``).  ``host``, a list, receives the host clock's
+    ms of each call."""
     import torch
 
     for _ in range(warm):
@@ -129,12 +150,28 @@ def cuda_ms(fn, n=25, warm=3) -> float:
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if ahead:
+            torch.cuda._sleep(AHEAD_CYCLES)
         a.record()
+        t0 = time.perf_counter()
         fn()
+        t1 = time.perf_counter()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+        if host is not None:
+            host.append((t1 - t0) * 1e3)
     return statistics.median(times)
+
+
+def kernel_ms(fn) -> tuple:
+    """(call ms, device ms, host ms) of a kernel wrapper call: the event
+    time of one call from an idle card, the wrapper's host work
+    included; its device work alone; and the host clock's time of the
+    call from an idle card, the wrapper's part of the call time."""
+    host = []
+    call = cuda_ms(fn, host=host)
+    return call, cuda_ms(fn, ahead=True), statistics.median(host)
 
 
 def scan_bound(n_pages, page_size, n_planes, start_pages):
@@ -156,17 +193,25 @@ def scan_bound(n_pages, page_size, n_planes, start_pages):
 
 
 def kernel_table(torch, dev):
-    """Phases 2 and 4: the paper's table size (58,594 pages x 256 rows
-    x 21 attributes) with values that wrap int32 sums, MVCC gaps and an
-    unoccupied tail; returns (data, begin_ts, end_ts) on ``dev`` and
-    the generator, whose stream phase 2 continues for its queries."""
+    """Phases 2, 4 and 6: the paper's table size (58,594 pages x 256
+    rows x 21 attributes) with values that wrap int32 sums, MVCC gaps
+    and an unoccupied tail, stored as the port stores every table
+    (attribute-major, ``core.table.attribute_major``) so that the
+    kernels read the planes the main path reads; returns (data,
+    begin_ts, end_ts) on ``dev`` and the generator, whose stream phase
+    2 continues for its queries."""
     import numpy as np
+
+    from repro_torch.core.table import attribute_major, is_attribute_major
 
     n_pages, psz, n_attrs = 58_594, PAGE_SIZE, 21
     rng = np.random.default_rng(12)
-    data = torch.from_numpy(rng.integers(
-        -(2**31), 2**31, size=(n_pages, psz, n_attrs), dtype=np.int64
-    ).astype(np.int32)).to(dev)
+    data = attribute_major((n_pages,), psz, n_attrs, dev)
+    for a in range(n_attrs):  # one plane at a time: no row-major copy
+        data[..., a].copy_(torch.from_numpy(rng.integers(
+            -(2**31), 2**31, size=(n_pages, psz), dtype=np.int64
+        ).astype(np.int32)))
+    assert is_attribute_major(data)
     begin = torch.from_numpy(
         rng.integers(0, 100, size=(n_pages, psz)).astype(np.int32)).to(dev)
     end = torch.from_numpy(np.where(
@@ -185,6 +230,9 @@ def phase_kernels(torch, bfa, fa, tab):
     dev = data.device
     n_pages, psz, _ = data.shape
     planes = (data[..., 3], data[..., 1], data[..., 2], begin, end)
+    # The call time of nothing: two events recorded on an idle card, the
+    # floor under every kernel_ms.
+    emit(dict(phase="event_floor", kernel_ms=cuda_ms(lambda: None)))
     results = {}
     for B in (1, 8, 32):
         lo0 = rng.integers(-(2**31), 2**30, size=B)
@@ -203,14 +251,17 @@ def phase_kernels(torch, bfa, fa, tab):
                       (kc.long() - pc.long()).abs().max()))
         assert torch.equal(ks, ps) and torch.equal(kc, pc), (B, err)
         n0 = bfa.launches
-        k_ms = cuda_ms(lambda: bfa.batched_filter_agg(*planes, *qt))
+        k_ms, d_ms, h_ms = kernel_ms(
+            lambda: bfa.batched_filter_agg(*planes, *qt))
         p_ms = cuda_ms(lambda: bfa.batched_filter_agg_plain(*planes, *qt),
                        n=5, warm=1)
         nbytes, bound, by = scan_bound(n_pages, psz, 5, q[5].tolist())
         row = dict(phase="kernel", kernel="K1", B=B, kernel_ms=k_ms,
-                   plain_ms=p_ms, bytes_moved=nbytes, bound_ms=bound,
-                   bound_by=by, launches=bfa.launches - n0,
-                   max_abs_err=err, equal=True)
+                   device_ms=d_ms, host_ms=h_ms, plain_ms=p_ms,
+                   bytes_moved=nbytes, bound_ms=bound, bound_by=by,
+                   share_of_bound=bound / k_ms,
+                   device_share_of_bound=bound / d_ms,
+                   launches=bfa.launches - n0, max_abs_err=err, equal=True)
         emit(row)
         results[("K1", B)] = row
         if B == 1:
@@ -223,15 +274,18 @@ def phase_kernels(torch, bfa, fa, tab):
             assert err2 == 0 and (int(s2), int(c2)) == (int(ks[0]),
                                                         int(kc[0]))
             n0 = fa.launches
-            k_ms = cuda_ms(lambda: fa.filter_agg(*planes, *args,
-                                                 start_page=start))
+            k_ms, d_ms, h_ms = kernel_ms(lambda: fa.filter_agg(
+                *planes, *args, start_page=start))
             p_ms = cuda_ms(lambda: fa.filter_agg_plain(
                 *planes, *args, start_page=start), n=5, warm=1)
             nbytes, bound, by = scan_bound(n_pages, psz, 5, [start])
             row = dict(phase="kernel", kernel="K2", B=1, kernel_ms=k_ms,
-                       plain_ms=p_ms, bytes_moved=nbytes, bound_ms=bound,
-                       bound_by=by, launches=fa.launches - n0,
-                       max_abs_err=err2, equal=True)
+                       device_ms=d_ms, host_ms=h_ms, plain_ms=p_ms,
+                       bytes_moved=nbytes, bound_ms=bound, bound_by=by,
+                       share_of_bound=bound / k_ms,
+                       device_share_of_bound=bound / d_ms,
+                       launches=fa.launches - n0, max_abs_err=err2,
+                       equal=True)
             emit(row)
             results[("K2", 1)] = row
     return results
@@ -317,7 +371,8 @@ def phase_masked_kernel(torch, bfa, tab):
                        max_abs_err=err)
             if B == 8 and name in ("scattered", "full"):
                 n0 = bfa.masked_launches
-                row["kernel_ms"] = cuda_ms(
+                (row["kernel_ms"], row["device_ms"],
+                 row["host_ms"]) = kernel_ms(
                     lambda: bfa.sharded_batched_filter_agg_masked(
                         *planes3, *qt, words, local))
                 row["plain_ms"] = cuda_ms(
@@ -326,6 +381,8 @@ def phase_masked_kernel(torch, bfa, tab):
                 nbytes, bound, by = masked_bound(n_pages - n_cov, psz, B,
                                                  words.numel())
                 row.update(bytes_moved=nbytes, bound_ms=bound, bound_by=by,
+                           share_of_bound=bound / row["kernel_ms"],
+                           device_share_of_bound=bound / row["device_ms"],
                            launches=bfa.masked_launches - n0)
                 if name == "scattered":
                     timed = row
@@ -402,8 +459,10 @@ def k4_case(torch, bfa, planes, q, starts, local, label, timed):
                local_pages=lp, max_abs_err=err, equal=True,
                bytes_moved=nbytes, bound_ms=bound, bound_by=by, **label)
     n0 = bfa.sharded_launches
-    row["kernel_ms"] = cuda_ms(lambda: bfa.sharded_batched_filter_agg(
-        *planes, *q, starts, local))
+    row["kernel_ms"], row["device_ms"], row["host_ms"] = kernel_ms(
+        lambda: bfa.sharded_batched_filter_agg(*planes, *q, starts, local))
+    row["share_of_bound"] = bound / row["kernel_ms"]
+    row["device_share_of_bound"] = bound / row["device_ms"]
     row["launches"] = bfa.sharded_launches - n0
     if timed:
         row["plain_ms"] = cuda_ms(
@@ -437,7 +496,7 @@ def phase_sharded_kernel(torch, bfa, tab):
     stitch = n_pages // 3  # 19,531: the prefix of phase 4
     sid = np.arange(S)[:, None]
     lp = np.array(st.local_pages)[:, None]
-    rows, errs, headline = [], [], None
+    rows, errs, headline, b8 = [], [], None, {}
     for B in (1, 8, 16, 32):
         lo0 = rng.integers(-(2**31), 2**30, size=B)
         q = [lo0, lo0 + 2**30, np.full(B, -(2**31)), np.full(B, 2**31 - 1),
@@ -464,8 +523,10 @@ def phase_sharded_kernel(torch, bfa, tab):
                 assert torch.equal(ks, s1) and torch.equal(kc, c1), kind
             if kind == "past_local_pages":
                 assert not kc.any() and not ks.any(), B
-            if B == 8 and kind == "global_stitch":
-                headline = row
+            if B == 8:
+                b8[kind] = row
+                if kind == "global_stitch":
+                    headline = row
         # S = 1 is K1: one shard of the unsharded planes, mixed starts.
         one = torch.tensor(rng.integers(0, n_pages + 100, size=(1, B)).astype(
             np.int32), device=dev)
@@ -499,12 +560,20 @@ def phase_sharded_kernel(torch, bfa, tab):
                                 dict(layout="skewed_36_4_4_4", S=4,
                                      starts=kind), timed=True)
         errs.append(row["max_abs_err"])
+        b8[f"skewed_{kind}"] = row
         if kind == "zero":  # padding tiles skipped, padding invisible
             s1, c1 = bfa.batched_filter_agg(
                 *head, *qt, torch.zeros(B, dtype=torch.int32, device=dev))
             assert torch.equal(ks, s1) and torch.equal(kc, c1)
     del skew, splanes
     torch.cuda.empty_cache()
+    emit(dict(phase="sharded_kernel_b8", cases={
+        k: dict(kernel_ms=r["kernel_ms"], device_ms=r["device_ms"],
+                host_ms=r["host_ms"], bound_ms=r["bound_ms"],
+                share_of_bound=r["share_of_bound"],
+                device_share_of_bound=r["device_share_of_bound"],
+                plain_ms=r.get("plain_ms"))
+        for k, r in b8.items()}))
     headline["max_abs_err"] = max(errs)
     return headline
 
@@ -1074,11 +1143,49 @@ def device_busy_us(prof):
     return busy
 
 
+# Device kernels that gather rows by index (``aten::index`` and
+# ``index_select``).
+GATHER_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel",
+                  "indexSelect", "gather_kernel")
+
+
+def range_kernels(prof, name):
+    """How many times the profiler range ``name`` was entered, and
+    (kernel name, device us) of every device kernel launched inside it:
+    by the CPU ops under it, at any depth."""
+    from torch.autograd import DeviceType
+
+    stack = [e for e in prof.events()
+             if e.name == name and e.device_type == DeviceType.CPU]
+    entered, out = len(stack), []
+    while stack:
+        e = stack.pop()
+        out += [(k.name, k.duration) for k in e.kernels]
+        stack += e.cpu_children
+    return entered, out
+
+
+def by_name(kernels):
+    """[(name, us, count)] of (name, us) pairs, summed by name."""
+    tot = {}
+    for k, us in kernels:
+        t, c = tot.get(k, (0.0, 0))
+        tot[k] = (t + us, c + 1)
+    return [(k[:60], t / 1e3, c) for k, (t, c) in sorted(
+        tot.items(), key=lambda kv: -kv[1][0])]
+
+
 def profile_bursts(torch, dbk, dbp, tag, make_scans):
     """Device time by kernel name for one burst of each twin (each
-    twin's scans from one call of ``make_scans``)."""
+    twin's scans from one call of ``make_scans``), and on a line of its
+    own the gather kernels of the index half (those launched inside
+    ``hybrid_scan.GATHER_RANGE``) beside every gather kernel of the
+    burst (crack adoption's page gathers and coverage writes
+    included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hybrid_scan import GATHER_RANGE
 
     out = ROOT / "build" / "profile"
     out.mkdir(parents=True, exist_ok=True)
@@ -1109,6 +1216,21 @@ def profile_bursts(torch, dbk, dbp, tag, make_scans):
                                     for e in kernels) / 1e3,
                   top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                        for e in top]))
+        probes, in_range = range_kernels(prof, GATHER_RANGE)
+        half = [(k, us) for k, us in in_range
+                if any(g in k for g in GATHER_KERNELS)]
+        gather_ms = sum(us for _, us in half) / 1e3
+        burst = [e for e in kernels
+                 if any(g in e.key for g in GATHER_KERNELS)]
+        burst_ms = sum(e.self_device_time_total for e in burst) / 1e3
+        emit(dict(phase="profile_gathers", path=tag, twin=name,
+                  probes=probes, gather_ms=gather_ms,
+                  share_of_busy=gather_ms / busy_ms,
+                  range_ms=sum(us for _, us in in_range) / 1e3,
+                  kernels=by_name(half),
+                  burst_gather_ms=burst_ms,
+                  burst_kernels=[(e.key[:60], e.self_device_time_total / 1e3,
+                                  e.count) for e in burst]))
 
 
 def main(argv) -> int:
@@ -1201,6 +1323,11 @@ def main(argv) -> int:
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=None),
     ]
+    for k, row in zip(kernels, (k1, k2, k3, k4)):
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+        k["device_ms"] = row["device_ms"]
+        k["host_ms"] = row["host_ms"]
+        k["device_share_of_bound"] = k["bound_ms"] / k["device_ms"]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -21,7 +21,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import AdHocIndex, PageCoverage, stack_indexes
-from repro_torch.core.table import Table, resolve_device, stack_shards
+from repro_torch.core.table import (
+    Table,
+    attribute_major,
+    resolve_device,
+    stack_shards,
+)
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -39,8 +44,11 @@ def table_from_reference(fields, device=None):
         return stack_shards([table_from_reference(f, dev) for f in shards],
                             int(np.asarray(n_rows)))
     data, begin_ts, end_ts, n_rows = fields
-    return Table(_tensor(data, dev), _tensor(begin_ts, dev),
-                 _tensor(end_ts, dev), int(np.asarray(n_rows)))
+    data = np.array(data, np.int32)  # writable, for torch.from_numpy
+    values = attribute_major(data.shape[:-2], *data.shape[-2:], dev)
+    values.copy_(torch.from_numpy(data))  # into the attribute-major store
+    return Table(values, _tensor(begin_ts, dev), _tensor(end_ts, dev),
+                 int(np.asarray(n_rows)))
 
 
 def index_from_reference(fields, device=None):

@@ -52,9 +52,15 @@ from repro_torch.core.table import (
     ShardedTable,
     Table,
     conj_predicate_mask,
+    rows_view,
     visible_mask,
 )
 from repro_torch.kernels.ref import i32_sum
+
+# Profiler range around the index half's gathers (the probed entries'
+# rids, and their rows' key, aggregate and MVCC planes), so that a
+# trace can add up their device time apart from the rest of a burst.
+GATHER_RANGE = "hybrid_scan.index_gathers"
 
 
 class ScanResult(NamedTuple):
@@ -162,20 +168,23 @@ def _probe_stacked(st: ShardedTable, index: ShardedIndex, key_attrs,
     pos = start.reshape(-1)[seg] + torch.arange(total, device=dev) - \
         bounds[seg]
     shard = seg // B
-    local = index.rids.reshape(-1)[shard * index.rids.shape[1] + pos].to(
-        torch.int64)
-    rows = shard * (data.shape[1] * psz) + local
-    flat = data.reshape(-1, data.shape[-1])
+    flat = rows_view(data)  # attribute-major: flat[:, a] is one plane
+    with torch.profiler.record_function(GATHER_RANGE):
+        local = index.rids.reshape(-1)[shard * index.rids.shape[1] + pos].to(
+            torch.int64)
+        rows = shard * (data.shape[1] * psz) + local
+        cols = [flat[:, a][rows] for a in attrs]
+        begin = st.begin_ts.reshape(-1)[rows]
+        end = st.end_ts.reshape(-1)[rows]
+        vals = flat[:, agg_attr][rows]
     qid = seg % B
     match = torch.ones(total, dtype=torch.bool, device=dev)
-    for k, a in enumerate(attrs):
-        col = flat[rows, a]
+    for k, col in enumerate(cols):
         match &= (col >= los[qid, k]) & (col <= his[qid, k])
     ts = tss[qid]
-    match &= (st.begin_ts.reshape(-1)[rows] <= ts) & (
-        ts < st.end_ts.reshape(-1)[rows])
-    return _Probe(seg, qid, bounds, spans, rows, local // psz, match,
-                  flat[rows, agg_attr], cnt.to(torch.int32))
+    match &= (begin <= ts) & (ts < end)
+    return _Probe(seg, qid, bounds, spans, rows, local // psz, match, vals,
+                  cnt.to(torch.int32))
 
 
 def _probe(table: Table, index: AdHocIndex, key_attrs, attrs, los, his,

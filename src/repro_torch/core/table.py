@@ -9,6 +9,18 @@ device:
 ``end_ts``    (n_pages, page_size) int32            -- MVCC end timestamp
 ``n_rows``    int                                   -- append watermark
 
+The attribute values are stored attribute-major behind that shape:
+every table this module makes allocates its values as (n_attrs,
+n_pages, page_size) -- (n_attrs, S, max_pages, page_size) when sharded
+-- and exposes them permuted (``attribute_major``).  Each plane
+``data[..., a]`` is then one unit-stride run, which the stream kernels
+(K1, K4) read with 16-byte loads, and ``data.view(-1, n_attrs)`` is
+still a view (the leading strides merge), so the mutators write rows in
+place.  There is one layout and no switch; ``clone``, ``empty_like``
+and ``.to(device)`` keep it (the permuted tensor is dense).
+tests/test_torch_layout.py pins it on every path that makes or changes
+a table.
+
 A *rid* is ``page_id * page_size + slot``; pages fill in rid order and
 inserts / update versions append at the ``n_rows`` watermark.  A row
 version is visible to snapshot ``ts`` iff ``begin_ts <= ts < end_ts``;
@@ -68,6 +80,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def attribute_major(lead: tuple, page_size: int, n_attrs: int,
+                    device) -> torch.Tensor:
+    """Zeroed (*lead, page_size, n_attrs) int32 attribute values stored
+    attribute-major: allocated as (n_attrs, *lead, page_size) and
+    exposed through a permutation."""
+    store = torch.zeros((n_attrs, *lead, page_size), dtype=torch.int32,
+                        device=device)
+    return store.movedim(0, -1)
+
+
+def is_attribute_major(data: torch.Tensor) -> bool:
+    """True iff every plane ``data[..., a]`` is one unit-stride run."""
+    return data[..., 0].is_contiguous()
+
+
+def rows_view(data: torch.Tensor) -> torch.Tensor:
+    """``data`` as (rows, n_attrs), a view of the same storage: the
+    leading strides of an attribute-major table merge, and ``view``
+    raises rather than copy where they would not."""
+    return data.view(-1, data.shape[-1])
+
+
 class Table(NamedTuple):
     """Paged column store on one device."""
 
@@ -102,8 +136,7 @@ def make_table(n_pages: int, page_size: int, n_attrs: int,
     """An empty table with fixed capacity."""
     dev = resolve_device(device)
     return Table(
-        data=torch.zeros((n_pages, page_size, n_attrs), dtype=torch.int32,
-                         device=dev),
+        data=attribute_major((n_pages,), page_size, n_attrs, dev),
         begin_ts=torch.full((n_pages, page_size), NEVER_TS,
                             dtype=torch.int32, device=dev),
         end_ts=torch.full((n_pages, page_size), INF_TS, dtype=torch.int32,
@@ -126,7 +159,7 @@ def load_table(values: np.ndarray, page_size: int, n_pages: int | None = None,
     if n_pages < min_pages:
         raise ValueError(f"n_pages={n_pages} cannot hold {n} rows")
     table = make_table(n_pages, page_size, n_attrs, device=dev)
-    table.data.view(-1, n_attrs)[:n] = torch.from_numpy(values).to(dev)
+    rows_view(table.data)[:n] = torch.from_numpy(values).to(dev)
     table.begin_ts.view(-1)[:n] = ts
     return table._replace(n_rows=n)
 
@@ -174,7 +207,7 @@ def insert_rows(table: Table, rows, ts, n_new: int,
     k = max(0, min(n_new, int(rows.shape[0]), table.capacity - base))
     if k:
         rows = torch.as_tensor(rows, dtype=torch.int32, device=table.device)
-        table.data.view(-1, table.n_attrs)[base:base + k] = rows[:k]
+        rows_view(table.data)[base:base + k] = rows[:k]
         table.begin_ts.view(-1)[base:base + k] = int(ts)
         table.end_ts.view(-1)[base:base + k] = INF_TS
     return table._replace(n_rows=min(base + n_new, table.capacity))
@@ -195,7 +228,7 @@ def update_rows(table: Table, attrs: tuple, los, his, set_attrs, set_vals,
     if n_upd == 0:
         return table, 0
     table.end_ts.view(-1)[rids] = ts  # terminate the old versions
-    new_rows = table.data.view(-1, table.n_attrs)[rids]  # a copy
+    new_rows = rows_view(table.data)[rids]  # a copy
     set_attrs = torch.as_tensor(set_attrs, dtype=torch.long,
                                 device=table.device)
     new_rows[:, set_attrs] = torch.as_tensor(
@@ -338,8 +371,7 @@ def stack_shards(shards: Sequence[Table], n_rows: int) -> ShardedTable:
     max_pages = max(t.n_pages for t in shards)
     S = len(shards)
     psz, n_attrs = t0.page_size, t0.n_attrs
-    data = torch.zeros((S, max_pages, psz, n_attrs), dtype=torch.int32,
-                       device=dev)
+    data = attribute_major((S, max_pages), psz, n_attrs, dev)
     begin = torch.full((S, max_pages, psz), NEVER_TS, dtype=torch.int32,
                        device=dev)
     end = torch.full((S, max_pages, psz), INF_TS, dtype=torch.int32,
@@ -395,8 +427,7 @@ def unshard_table(st: ShardedTable) -> Table:
         if lp != len(range(s, n_pages, S)):
             raise ValueError("only a round-robin page map can be unsharded")
     shape = (n_pages, st.page_size)
-    data = torch.empty(shape + (st.n_attrs,), dtype=torch.int32,
-                       device=st.device)
+    data = attribute_major((n_pages,), st.page_size, st.n_attrs, st.device)
     begin = torch.empty(shape, dtype=torch.int32, device=st.device)
     end = torch.empty(shape, dtype=torch.int32, device=st.device)
     for s, lp in enumerate(st.local_pages):
@@ -433,7 +464,7 @@ def sharded_insert_rows(st: ShardedTable, rows, ts, n_new: int,
         gp = rids // psz
         ok = gp // S < torch.tensor(st.local_pages, device=dev)[gp % S]
         slots = _stacked_slots(st, rids[ok])
-        st.data.view(-1, st.n_attrs)[slots] = rows[ok]
+        rows_view(st.data)[slots] = rows[ok]
         st.begin_ts.view(-1)[slots] = int(ts)
         st.end_ts.view(-1)[slots] = INF_TS
     n_rows = min(base + n_new, st.capacity)
@@ -462,7 +493,7 @@ def sharded_update_rows(st: ShardedTable, attrs: tuple, los, his, set_attrs,
         return st, 0
     slots = _stacked_slots(st, rids)
     st.end_ts.view(-1)[slots] = ts  # terminate the old versions
-    new_rows = st.data.view(-1, st.n_attrs)[slots]  # a copy
+    new_rows = rows_view(st.data)[slots]  # a copy
     set_attrs = torch.as_tensor(set_attrs, dtype=torch.long,
                                 device=st.device)
     new_rows[:, set_attrs] = torch.as_tensor(

@@ -26,14 +26,16 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_PLANES = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _LL, _I, _I]
+# Every entry point: device, five plane pointers, ..., out, stream.
+_PLANES = [_I] + [_P] * 5
 SIGNATURES = {
-    "batched_filter_agg_launch": _PLANES + [_P] * 6 + [_I, _P, _P, _P],
-    "filter_agg_launch": _PLANES + [_I] * 6 + [_P, _P, _P],
-    "masked_filter_agg_launch": _PLANES + [_P] * 5 + [_I, _P, _I, _P, _I, _I,
-                                                      _P, _P, _P],
-    "sharded_filter_agg_launch": _PLANES + [_P] * 6 + [_I, _P, _I, _I, _P,
-                                                       _P, _P],
+    "batched_filter_agg_launch": _PLANES + [_I] * 3 + [_P] * 6 + [
+        _I, _P, _P],
+    "filter_agg_launch": _PLANES + [_LL] + [_I] * 8 + [_P, _P],
+    "masked_filter_agg_launch": _PLANES + [_LL, _I, _I] + [_P] * 5 + [
+        _I, _P, _I, _P, _I, _I, _P, _P],
+    "sharded_filter_agg_launch": _PLANES + [_I] * 4 + [_P] * 6 + [
+        _I, _P, _P, _P],
 }
 
 _LIB = None

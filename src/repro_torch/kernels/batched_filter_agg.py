@@ -18,16 +18,27 @@ the CPU they take the plain PyTorch version beside them
 ``launches`` counts K1 launches, ``sharded_launches`` K4 launches and
 ``masked_launches`` K3 launches.
 
-Column planes are (n_pages, page_size) int32 and may be strided views
-of the table's (n_pages, page_size, n_attrs) array (``data[..., a]``):
-the kernel reads every plane with its own element stride between
-consecutive rows, so a column is never copied per dispatch.
+Column planes are (n_pages, page_size) int32 views of a table's
+attribute values (``data[..., a]``), never copied per dispatch.  The
+port stores tables attribute-major (``core/table.py``), so each plane
+is one unit-stride run.  The kernels read row r of a plane at
+``plane[r]`` (K1 and K4 with 16-byte loads) and take only such planes
+on the card: ``check_planes`` raises on a plane whose row stride is
+not 1.
 
-Tiling: one CUDA block scans ``block_pages`` whole pages
-(``tile_pages``, about ``TILE_ROWS`` rows).  The result does not
-depend on the tile size -- int32 additions wrap associatively and
-commutatively; tests/test_torch_kernels_cuda.py holds the kernel
-against the plain version at several tile sizes.
+Each wrapper does little on the host, since a burst's kernel calls are
+short: it checks its operands, allocates one (2, B) output and hands
+the pointers to the C entry point, which zeroes the output on the
+stream and launches.
+
+Tiling: K1 / K4 walk a list of live tiles of ``stream_tile_rows``
+rows (``TILE_ROWS``, or ``block_pages`` pages rounded up to a 16-byte
+multiple) with a grid sized to the card; K3 gives one CUDA block
+``block_pages`` whole pages (``tile_pages``, about ``TILE_ROWS``
+rows).  The result does not depend on the tile size -- int32
+additions wrap associatively and commutatively;
+tests/test_torch_kernels_cuda.py holds the kernels against the plain
+versions at several tile sizes.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ from repro_torch.kernels.ref import (
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
 
-# Rows one CUDA block scans: 256 threads x 4 rows x 4 passes.
+# Rows of one tile: 256 threads x 4 rows x 4 passes (K3), 256 threads
+# x 4 sixteen-byte words of 4 rows (K1 / K4).
 TILE_ROWS = 4096
 
 launches = 0  # K1 launches since the last reset (plain runs excluded)
@@ -57,16 +69,18 @@ def tile_pages(n_pages: int, page_size: int) -> int:
     return max(1, min(int(n_pages), TILE_ROWS // int(page_size)))
 
 
-def _row_stride(plane: torch.Tensor, shape, device, name: str) -> int:
+def stream_tile_rows(page_size: int, block_pages: int | None) -> int:
+    """Rows per tile of K1 / K4's live-tile list: ``TILE_ROWS``, or
+    ``block_pages`` pages rounded up to a multiple of 4 rows (16
+    bytes), so that tiles start on 16-byte words."""
+    if block_pages is None:
+        return TILE_ROWS
+    return -(-int(block_pages) * int(page_size) // 4) * 4
+
+
+def _row_stride(plane: torch.Tensor, name: str) -> int:
     """Element stride between consecutive rows of a ([S,] n_pages,
-    page_size) plane whose rows are evenly spaced in memory."""
-    if plane.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {plane.dtype}")
-    if tuple(plane.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(plane.shape)}, "
-                         f"expected {tuple(shape)}")
-    if plane.device != device:
-        raise ValueError(f"{name} is on {plane.device}, expected {device}")
+    page_size) plane; raises unless its rows are evenly spaced."""
     stride = plane.stride(-1)
     span = stride
     for dim in range(plane.dim() - 2, -1, -1):
@@ -78,21 +92,40 @@ def _row_stride(plane: torch.Tensor, shape, device, name: str) -> int:
 
 
 def check_planes(planes, ndim=2, names=("pred0", "pred1", "agg",
-                                        "begin_ts", "end_ts")):
-    """Validate the five column planes; returns their row strides."""
+                                        "begin_ts", "end_ts"),
+                 unit_stride=False):
+    """Validate the five column planes: int32, one shape and device,
+    rows evenly spaced.  With ``unit_stride`` (every kernel, on the
+    card) each plane must have row stride 1 -- one contiguous run, as
+    the attribute-major tables give."""
     shape, device = planes[0].shape, planes[0].device
     if len(shape) != ndim:
         raise ValueError(f"column planes must be {ndim}-D, got "
                          f"{tuple(shape)}")
-    return [_row_stride(x, shape, device, n) for x, n in zip(planes, names)]
+    for x, n in zip(planes, names):
+        if x.dtype != torch.int32:
+            raise TypeError(f"{n} must be int32, got {x.dtype}")
+        if x.shape != shape:
+            raise ValueError(f"{n} has shape {tuple(x.shape)}, expected "
+                             f"{tuple(shape)}")
+        if x.device != device:
+            raise ValueError(f"{n} is on {x.device}, expected {device}")
+        if x.is_contiguous():  # row stride 1
+            continue
+        stride = _row_stride(x, n)
+        if unit_stride:
+            raise ValueError(
+                f"{n} has row stride {stride}: the kernels read "
+                f"unit-stride planes (store the table attribute-major)")
 
 
-def _plane_args(planes, strides):
-    """The launch's (pointer, row stride) pair of every plane."""
-    out = []
-    for x, s in zip(planes, strides):
-        out += [x.data_ptr(), s]
-    return out
+def _launch_args(dev, nq):
+    """(device index, (2, nq) int32 output, raw stream) of a launch on
+    the current stream of ``dev``."""
+    out = torch.empty((2, nq), dtype=torch.int32, device=dev)
+    # The raw handle, without building a torch.cuda.Stream: a burst's
+    # kernel calls are short, so the wrapper's host time counts.
+    return dev.index, out, torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def batched_filter_agg_plain(pred0, pred1, agg, begin_ts, end_ts, los0,
@@ -138,8 +171,8 @@ def batched_filter_agg(
     (n_queries,) int32.
     """
     planes = (pred0, pred1, agg, begin_ts, end_ts)
-    strides = check_planes(planes)
     dev = pred0.device
+    check_planes(planes, unit_stride=dev.type == "cuda")
     n_pages, page_size = pred0.shape
     nq = los0.shape[0]
     ops = [
@@ -151,33 +184,30 @@ def batched_filter_agg(
     ]
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no K1 kernel for device {dev}")
-    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
     if nq == 0 or n_pages == 0:
-        return out_sum, out_cnt
+        out = torch.zeros((2, nq), dtype=torch.int32, device=dev)
+        return out.unbind(0)
     if dev.type == "cpu":
         return batched_filter_agg_plain(*planes, *ops)
     from repro_torch.kernels._build import library
 
     global launches
-    bp = int(block_pages or tile_pages(n_pages, page_size))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().batched_filter_agg_launch(
-            *_plane_args(planes, strides),
-            n_pages * page_size,
-            page_size,
-            bp * page_size,
-            *[x.data_ptr() for x in ops],
-            nq,
-            out_sum.data_ptr(),
-            out_cnt.data_ptr(),
-            stream,
-        )
+    index, out, stream = _launch_args(dev, nq)
+    err = library().batched_filter_agg_launch(
+        index,
+        *[x.data_ptr() for x in planes],
+        n_pages,
+        page_size,
+        stream_tile_rows(page_size, block_pages),
+        *[x.data_ptr() for x in ops],
+        nq,
+        out.data_ptr(),
+        stream,
+    )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
     launches += 1
-    return out_sum, out_cnt
+    return out.unbind(0)
 
 
 def sharded_batched_filter_agg_plain(pred0, pred1, agg, begin_ts, end_ts,
@@ -216,8 +246,8 @@ def sharded_batched_filter_agg(
     (n_queries,) int32, summed over shards.
     """
     planes = (pred0, pred1, agg, begin_ts, end_ts)
-    strides = check_planes(planes, ndim=3)
     dev = pred0.device
+    check_planes(planes, ndim=3, unit_stride=dev.type == "cuda")
     n_shards, n_pages, page_size = pred0.shape
     nq = los0.shape[0]
     ops = [
@@ -236,38 +266,34 @@ def sharded_batched_filter_agg(
     start_pages = start_pages.contiguous()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no K4 kernel for device {dev}")
-    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
     if nq == 0 or n_pages == 0 or n_shards == 0:
-        return out_sum, out_cnt
+        out = torch.zeros((2, nq), dtype=torch.int32, device=dev)
+        return out.unbind(0)
     if dev.type == "cpu":
         return sharded_batched_filter_agg_plain(
             *planes, *ops, start_pages, local_pages)
     from repro_torch.kernels._build import library
 
     global sharded_launches
-    bp = int(block_pages or tile_pages(n_pages, page_size))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().sharded_filter_agg_launch(
-            *_plane_args(planes, strides),
-            n_shards * n_pages * page_size,
-            page_size,
-            bp * page_size,
-            *[x.data_ptr() for x in ops],
-            start_pages.data_ptr(),
-            nq,
-            local_pages.data_ptr(),
-            n_shards,
-            n_pages,
-            out_sum.data_ptr(),
-            out_cnt.data_ptr(),
-            stream,
-        )
-    if err != 0:
+    index, out, stream = _launch_args(dev, nq)
+    err = library().sharded_filter_agg_launch(
+        index,
+        *[x.data_ptr() for x in planes],
+        n_shards,
+        n_pages,
+        page_size,
+        stream_tile_rows(page_size, block_pages),
+        *[x.data_ptr() for x in ops],
+        start_pages.data_ptr(),
+        nq,
+        local_pages.data_ptr(),
+        out.data_ptr(),
+        stream,
+    )
+    if err != 0:  # among them more shards than the kernel's shard table
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
     sharded_launches += 1
-    return out_sum, out_cnt
+    return out.unbind(0)
 
 
 def sharded_batched_filter_agg_masked_plain(pred0, pred1, agg, begin_ts,
@@ -306,8 +332,8 @@ def sharded_batched_filter_agg_masked(
     (sums, counts), each (n_queries,) int32 over uncovered pages only.
     """
     planes = (pred0, pred1, agg, begin_ts, end_ts)
-    strides = check_planes(planes, ndim=3)
     dev = pred0.device
+    check_planes(planes, ndim=3, unit_stride=dev.type == "cuda")
     n_shards, n_pages, page_size = pred0.shape
     nq = los0.shape[0]
     ops = [
@@ -329,10 +355,9 @@ def sharded_batched_filter_agg_masked(
     words = words.contiguous()
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no K3 kernel for device {dev}")
-    out_sum = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    out_cnt = torch.zeros((nq,), dtype=torch.int32, device=dev)
     if nq == 0 or n_pages == 0 or n_shards == 0:
-        return out_sum, out_cnt
+        out = torch.zeros((2, nq), dtype=torch.int32, device=dev)
+        return out.unbind(0)
     if dev.type == "cpu":
         return sharded_batched_filter_agg_masked_plain(
             *planes, *ops, words, local_pages)
@@ -340,25 +365,24 @@ def sharded_batched_filter_agg_masked(
 
     global masked_launches
     bp = int(block_pages or tile_pages(n_pages, page_size))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().masked_filter_agg_launch(
-            *_plane_args(planes, strides),
-            n_shards * n_pages * page_size,
-            page_size,
-            bp * page_size,
-            *[x.data_ptr() for x in ops],
-            nq,
-            words.data_ptr(),
-            n_words,
-            local_pages.data_ptr(),
-            n_shards,
-            n_pages,
-            out_sum.data_ptr(),
-            out_cnt.data_ptr(),
-            stream,
-        )
+    index, out, stream = _launch_args(dev, nq)
+    err = library().masked_filter_agg_launch(
+        index,
+        *[x.data_ptr() for x in planes],
+        n_shards * n_pages * page_size,
+        page_size,
+        bp * page_size,
+        *[x.data_ptr() for x in ops],
+        nq,
+        words.data_ptr(),
+        n_words,
+        local_pages.data_ptr(),
+        n_shards,
+        n_pages,
+        out.data_ptr(),
+        stream,
+    )
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     masked_launches += 1
-    return out_sum, out_cnt
+    return out.unbind(0)

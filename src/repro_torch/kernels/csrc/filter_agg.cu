@@ -1,51 +1,78 @@
 // Fused predicate-filter + aggregate table scans for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels on the read path:
+// Replaces the four Pallas TPU kernels of the read path:
 //   K1  src/repro/kernels/batched_filter_agg.py:163  batched_filter_agg
 //       (kernel body _batched_kernel)   -> batched_filter_agg_launch
+//   K4  src/repro/kernels/batched_filter_agg.py:308
+//       sharded_batched_filter_agg
+//       (kernel body _sharded_kernel)   -> sharded_filter_agg_launch
 //   K2  src/repro/kernels/filter_agg.py:103          filter_agg
 //       (kernel body _filter_agg_kernel) -> filter_agg_launch
 //   K3  src/repro/kernels/batched_filter_agg.py:483
 //       sharded_batched_filter_agg_masked
 //       (kernel body _masked_sharded_kernel) -> masked_filter_agg_launch
-//   K4  src/repro/kernels/batched_filter_agg.py:308
-//       sharded_batched_filter_agg
-//       (kernel body _sharded_kernel)   -> sharded_filter_agg_launch
-// K2 is the B = 1 instance of K1: both entry points run the same tile
-// body, so a one-query batch is bit-identical to the single-query scan.
-// K3 runs the same tile body over the UNCOVERED pages of a coverage
-// bitmap (notes at masked_filter_agg_kernel below), K4 over S stacked
-// shards with per-(shard, query) local start pages (notes at
-// sharded_filter_agg_kernel).
 //
 // Semantics (src/repro/kernels/ref.py): for each query q, SUM(agg) and
 // COUNT(*) over the rows with
 //   lo0[q] <= pred0 <= hi0[q]  and  lo1[q] <= pred1 <= hi1[q]
 //   and begin_ts <= ts[q] < end_ts  and  page >= start_page[q],
-// both wrapping like int32.
+// both wrapping like int32.  Partial sums are uint32 (signed overflow
+// is undefined in C++; unsigned addition wraps and commutes), reduced
+// per warp with shuffles and per block in shared memory, then added to
+// the (B,) output with atomicAdd, so the result does not depend on the
+// order in which blocks run.
 //
-// What bounds it on the H100: bytes.  Per row it reads five int32 values
-// and does about ten integer operations per query, far below the card's
-// integer rate, so the floor is the HBM stream (3.35 TB/s).  The design
-// answers that three ways:
-//   * Every row is loaded once per launch, whatever the batch size: a
-//     thread keeps its rows' five values in registers and loops over the
-//     queries, whose bounds sit in shared memory (the TPU kernel's "one
-//     stream of the tile per batch").
-//   * The predicate and aggregate columns are read in place out of the
-//     table's (n_pages, page_size, n_attrs) array with element stride
-//     n_attrs, so no column is copied per dispatch.  The price is that a
-//     column read pulls whole 32-byte sectors of the row-major table.
-//   * A tile that lies wholly below every query's start_page returns
-//     before it loads anything (the TPU kernel's pre-DMA skip); inside a
-//     tile, rows below a query's start_page are masked per query, and a
-//     query whose start_page lies past the tile skips it.
-// The TPU grid ran in order on one core; here tiles are independent
-// blocks.  Partial sums are accumulated in uint32 (signed overflow is
-// undefined in C++; unsigned addition wraps and commutes), reduced per
-// warp with shuffles and per block in shared memory, then added to the
-// (B,) output with atomicAdd, so the result does not depend on the order
-// in which blocks finish.
+// K1 and K4 share one stream path (stream_filter_agg_kernel); K1 is
+// its S = 1 case: one shard of n_pages pages, all of them real, a
+// (1, B) table of start pages.  What bounds it on the H100 is bytes:
+// per row it reads five int32 values (two predicate planes, the
+// aggregate plane, begin_ts, end_ts) and does about nine integer
+// operations per query, so up to B ~ 12 the floor is the HBM stream
+// (3.35 TB/s) and above that the int32 issue rate.  The port stores
+// its tables attribute-major (core/table.py), so every plane is a
+// unit-stride run of int32 and a tile of rows is one contiguous run
+// per plane.  The design answers the bound four ways:
+//   * Unit-stride 16-byte streams.  Neighbouring lanes load
+//     neighbouring 16-byte words of each plane.  Bytes in flight come
+//     from registers, not a shared-memory ring: each thread issues
+//     kVecs 16-byte loads per plane (5 x kVecs x 16 = 320 bytes) before
+//     it evaluates a query, and two 256-thread blocks share an SM, so
+//     about 160 KB per SM are in flight, well above what the HBM
+//     latency asks for.  A TMA ring (cp.async.bulk into shared memory,
+//     mbarrier completion) would move the same bytes and then cost the
+//     consumer warps a shared-memory read per value; registers keep the
+//     values where the compares use them, and the plain loads need no
+//     16-byte alignment of the live range.  Rows of a 16-byte word that
+//     lie outside the tile's live rows (pages that are not a multiple
+//     of 16 bytes, a live range that starts mid-word) are loaded one by
+//     one inside the bounds; planes whose base addresses differ modulo
+//     16 bytes (an offset view) are loaded one row at a time.
+//   * A persistent grid over live tiles only.  The grid is sized to the
+//     card, min(live-tile upper bound, blocks per SM x SMs); each block
+//     derives every shard's live row range on the device, [min_q
+//     start[s, q], local_pages[s]) in pages, and walks the flat list of
+//     live tiles with a stride of gridDim.x.  No block is spent on
+//     prefix or padding tiles (the TPU kernel's clamped block window),
+//     and a launch whose starts all lie past local_pages loads no row.
+//   * Per-query partials stay in shared memory across all of a block's
+//     tiles: one atomicAdd per (block, query), not one per tile.
+//   * The page test runs only in the tile that straddles a query's
+//     start, as a row compare; tiles wholly past the start skip it,
+//     tiles wholly before it skip the query.  Per (row, query) the rest
+//     is four compares and two adds: each range test is one unsigned
+//     compare, and the match is combined bitwise, so the compiler keeps
+//     it in chained predicates.  That keeps the work near nine
+//     operations per (row, query), under the byte stream up to B ~ 12.
+// Queries are taken in chunks of kQueryChunk whose bounds sit in shared
+// memory; a batch larger than that streams its rows once per chunk.
+//
+// K2 and K3 keep the first port's tile body (scan_tile): one block per
+// tile of whole pages, one row per thread and load, unit-stride planes
+// as for the stream path, so their loads coalesce.  Their
+// redesign on the stream path comes next (K3's fully covered tiles
+// belong in the live-tile list).  K2 is the single-query scan with its
+// bounds passed by value; the tests hold it equal to a one-query K1
+// batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,11 +90,6 @@ struct Planes {
   const int32_t* agg;
   const int32_t* begin_ts;
   const int32_t* end_ts;
-  long long stride0;  // element stride between consecutive rows
-  long long stride1;
-  long long stride_agg;
-  long long stride_begin;
-  long long stride_end;
   long long n_rows;  // n_pages * page_size
   int page_size;
   int tile_rows;  // rows per block: block_pages * page_size
@@ -132,11 +154,11 @@ __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
         live[k] = ((cov.words[lp >> 5] >> (lp & 31)) & 1u) == 0u;
       }
       if (live[k]) {
-        v0[k] = p.pred0[r * p.stride0];
-        v1[k] = p.pred1[r * p.stride1];
-        va[k] = p.agg[r * p.stride_agg];
-        bt[k] = p.begin_ts[r * p.stride_begin];
-        et[k] = p.end_ts[r * p.stride_end];
+        v0[k] = p.pred0[r];
+        v1[k] = p.pred1[r];
+        va[k] = p.agg[r];
+        bt[k] = p.begin_ts[r];
+        et[k] = p.end_ts[r];
         pg[k] = (int)(r / p.page_size);
       } else {
         v0[k] = v1[k] = va[k] = bt[k] = et[k] = pg[k] = 0;
@@ -177,42 +199,6 @@ __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
     }
   }
   __syncthreads();  // the caller may restage qs / reuse the accumulators
-}
-
-// K1: one block per tile of pages, every query of the batch.
-__global__ void __launch_bounds__(kThreads)
-batched_filter_agg_kernel(Planes p, const int32_t* __restrict__ lo0,
-                          const int32_t* __restrict__ hi0,
-                          const int32_t* __restrict__ lo1,
-                          const int32_t* __restrict__ hi1,
-                          const int32_t* __restrict__ ts,
-                          const int32_t* __restrict__ start_pages, int nq,
-                          unsigned* out_sum, unsigned* out_cnt) {
-  __shared__ Bounds qs[kQueryChunk];
-  __shared__ int min_start;
-  const long long row0 = (long long)blockIdx.x * p.tile_rows;
-  const long long row_end =
-      row0 + p.tile_rows < p.n_rows ? row0 + p.tile_rows : p.n_rows;
-  const int last_page = (int)((row_end - 1) / p.page_size);
-
-  if (threadIdx.x == 0) min_start = INT32_MAX;
-  __syncthreads();
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    atomicMin(&min_start, start_pages[q]);
-  }
-  __syncthreads();
-  if (last_page < min_start) return;  // inside every query's prefix
-
-  for (int qc = 0; qc < nq; qc += kQueryChunk) {
-    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
-    for (int q = threadIdx.x; q < n; q += kThreads) {
-      qs[q] = Bounds{lo0[qc + q], hi0[qc + q], lo1[qc + q],
-                     hi1[qc + q], ts[qc + q], start_pages[qc + q]};
-    }
-    __syncthreads();
-    scan_tile<false>(p, qs, n, row0, row_end, Coverage{}, out_sum + qc,
-                     out_cnt + qc);
-  }
 }
 
 // K2: the same tile body for one query passed by value.
@@ -284,73 +270,353 @@ masked_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
   }
 }
 
-// K4: K1 over S stacked shards of n_pages pages each.  Grid (tiles of
-// one shard, shard), as K3's.  What bounds it is K1's: bytes, five
-// int32 reads per row of the pages at or past each shard's smallest
-// local start.  start_pages is (S, nq), the LOCAL stitch point of each
-// (shard, query) pair; a row of shard s, local page p counts for query
-// q iff start_pages[s, q] <= p < local_pages[s].
-//
-// The TPU kernel clamps each shard's block coordinate into the window
-// [first block any query needs, last block holding real pages], so
-// prefix blocks and trailing padding blocks revisit a resident block
-// and skip their DMA.  Here a block returns before it loads a row in
-// the same two cases: its tile lies at or past local_pages[s] (K3's
-// clamp; padding rows are never read), or it lies wholly below every
-// query's local start (K1's min_start exit, per shard).  Inside a live
-// tile scan_tile's page test runs on stacked page ids, so the block
-// stages each query's start as s * n_pages + start_pages[s, q], the
-// local start clamped into [0, n_pages] first so the sum cannot
-// overflow.
-__global__ void __launch_bounds__(kThreads)
-sharded_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
-                          const int32_t* __restrict__ lo0,
-                          const int32_t* __restrict__ hi0,
-                          const int32_t* __restrict__ lo1,
-                          const int32_t* __restrict__ hi1,
-                          const int32_t* __restrict__ ts,
-                          const int32_t* __restrict__ start_pages, int nq,
-                          const int32_t* __restrict__ local_pages,
-                          unsigned* out_sum, unsigned* out_cnt) {
-  __shared__ Bounds qs[kQueryChunk];
-  __shared__ int min_start;
-  const int s = blockIdx.y;
-  const long long first = (long long)blockIdx.x * tile_pages;
-  long long last = first + tile_pages;  // exclusive
-  if (last > n_pages) last = n_pages;
-  if (last > local_pages[s]) last = local_pages[s];
-  if (first >= last) return;  // padding past the shard's real pages
+// ---------------------------------------------------------------------
+// K1 / K4: the stream path (notes at the top of the file).
 
-  const int32_t* starts = start_pages + (long long)s * nq;
-  if (threadIdx.x == 0) min_start = INT32_MAX;
-  __syncthreads();
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    atomicMin(&min_start, starts[q]);
-  }
-  __syncthreads();
-  if (last - 1 < min_start) return;  // inside every query's prefix
+constexpr int kVecs = 4;  // 16-byte words per thread per plane per step
+constexpr int kStepRows = kThreads * 4 * kVecs;  // 4,096 rows per step
+constexpr int kMaxShards = 1024;  // the shard table lives in shared memory
 
-  const long long base = (long long)s * n_pages;
-  const long long row0 = (base + first) * p.page_size;
-  const long long row_end = (base + last) * p.page_size;
-  for (int qc = 0; qc < nq; qc += kQueryChunk) {
-    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
-    for (int q = threadIdx.x; q < n; q += kThreads) {
-      int st = starts[qc + q];
-      st = st < 0 ? 0 : (st > n_pages ? n_pages : st);
-      qs[q] = Bounds{lo0[qc + q], hi0[qc + q], lo1[qc + q],
-                     hi1[qc + q], ts[qc + q], (int)(base + st)};
+// Five unit-stride planes over S stacked shards of shard_rows rows.
+// Rows are addressed as R = row + off: in the 16-byte mode every plane
+// has the same address modulo 16, so plane[i] - off is 16-byte aligned
+// and a word holds the four rows whose R / 4 agree.
+struct Stream {
+  const int32_t* plane[5];  // pred0, pred1, agg, begin_ts, end_ts
+  long long shard_rows;     // n_pages * page_size
+  int n_shards;
+  int n_pages;
+  int page_size;
+  int tile_rows;  // rows per tile of the live-tile list, a multiple of 4
+  int off;        // 0 unless vec
+  bool vec;       // the planes agree modulo 16 bytes: 16-byte loads
+};
+
+// A query staged for the stream path: lo <= x <= hi becomes the one
+// unsigned compare (unsigned)(x - lo) <= hi - lo (exact when lo <= hi;
+// a query with lo > hi matches nothing and is not live).
+struct Query {
+  int lo0, lo1, ts;
+  unsigned w0, w1;
+  bool live;
+};
+
+__device__ __forceinline__ Query stage_query(int lo0, int hi0, int lo1,
+                                             int hi1, int ts) {
+  return Query{lo0, lo1, ts, (unsigned)hi0 - (unsigned)lo0,
+               (unsigned)hi1 - (unsigned)lo1, lo0 <= hi0 && lo1 <= hi1};
+}
+
+// Rows R0 .. R0 + 3 of every plane into v[plane][k].  Rows outside the
+// live range [a, b) are not read; they get end_ts = INT32_MIN, which no
+// snapshot satisfies (ts < end_ts), so they match no query.
+__device__ __forceinline__ void load_word(const Stream& p, long long R0,
+                                          long long a, long long b,
+                                          int (&v)[5][4]) {
+  if (p.vec && R0 >= a && R0 + 4 <= b) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int4 w =
+          __ldg(reinterpret_cast<const int4*>(p.plane[i] - p.off + R0));
+      v[i][0] = w.x;
+      v[i][1] = w.y;
+      v[i][2] = w.z;
+      v[i][3] = w.w;
     }
-    __syncthreads();
-    scan_tile<false>(p, qs, n, row0, row_end, Coverage{}, out_sum + qc,
-                     out_cnt + qc);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long R = R0 + k;
+    const bool in = R >= a && R < b;
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      v[i][k] = in ? __ldg(p.plane[i] + (R - p.off)) : 0;
+    }
+    if (!in) v[4][k] = INT32_MIN;
   }
 }
 
-Planes make_planes(const void* pred0, long long stride0, const void* pred1,
-                   long long stride1, const void* agg, long long stride_agg,
-                   const void* begin_ts, long long stride_begin,
-                   const void* end_ts, long long stride_end, long long n_rows,
+// 1 if row k of the word matches q, else 0.  Bitwise, not
+// short-circuit: the compiler then chains predicates instead of
+// materialising each compare as a byte.
+__device__ __forceinline__ unsigned row_match(const Query& q,
+                                              const int (&v)[5][4], int k) {
+  return (unsigned)((unsigned)v[0][k] - (unsigned)q.lo0 <= q.w0) &
+         (unsigned)((unsigned)v[1][k] - (unsigned)q.lo1 <= q.w1) &
+         (unsigned)(v[3][k] <= q.ts) & (unsigned)(q.ts < v[4][k]);
+}
+
+// One tile of the live-tile list: rows [a, b) of the tile that starts
+// at R = tile0, in steps of kStepRows.  q_start[q] is the first row (R)
+// that query q counts in the current shard.  Every thread of the block
+// runs it: its branches are uniform, so the shuffles see full warps.
+__device__ __forceinline__ void stream_tile(
+    const Stream& p, const Query* qs, const long long* q_start, int nq,
+    long long tile0, long long a, long long b,
+    unsigned (*acc_sum)[kQueryChunk], unsigned (*acc_cnt)[kQueryChunk]) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (long long step = tile0; step < b; step += kStepRows) {
+    if (step + kStepRows <= a) continue;
+    int v[kVecs][5][4];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      load_word(p, step + (long long)(j * kThreads + threadIdx.x) * 4, a, b,
+                v[j]);
+    }
+    for (int q = 0; q < nq; ++q) {
+      const long long qa = q_start[q];
+      if (qa >= b) continue;  // the query starts past this tile
+      const Query Q = qs[q];
+      if (!Q.live) continue;  // an empty range matches nothing
+      unsigned s = 0u, c = 0u;
+      if (qa <= a || qa <= step) {  // every loaded row is past its start
+#pragma unroll
+        for (int j = 0; j < kVecs; ++j) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const unsigned m = row_match(Q, v[j], k);
+            s += (unsigned)v[j][2][k] & (0u - m);
+            c += m;
+          }
+        }
+      } else {  // the tile straddles the query's start: test each row
+        const long long d = qa - step;
+        const int lim = d > kStepRows ? kStepRows : (int)d;
+#pragma unroll
+        for (int j = 0; j < kVecs; ++j) {
+          const int rel = (j * kThreads + threadIdx.x) * 4;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const unsigned m =
+                (unsigned)(rel + k >= lim) & row_match(Q, v[j], k);
+            s += (unsigned)v[j][2][k] & (0u - m);
+            c += m;
+          }
+        }
+      }
+      s = warp_sum(s);
+      c = warp_sum(c);
+      if (lane == 0) {
+        acc_sum[warp][q] += s;
+        acc_cnt[warp][q] += c;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int clamp_pages(int x, int n) {
+  return x < 0 ? 0 : (x > n ? n : x);
+}
+
+// start_pages is (S, nq), each (shard, query) pair's LOCAL start page;
+// a row of shard s, local page pg counts for query q iff start_pages[s,
+// q] <= pg < local_pages[s] (local_pages == nullptr: every page real).
+__global__ void __launch_bounds__(kThreads, 2)
+stream_filter_agg_kernel(Stream p, const int32_t* __restrict__ lo0,
+                         const int32_t* __restrict__ hi0,
+                         const int32_t* __restrict__ lo1,
+                         const int32_t* __restrict__ hi1,
+                         const int32_t* __restrict__ ts,
+                         const int32_t* __restrict__ start_pages, int nq,
+                         const int32_t* __restrict__ local_pages,
+                         unsigned* out_sum, unsigned* out_cnt) {
+  // The shard table: flat index of each shard's first live tile (and
+  // the total at [S]), its live rows [live_lo, live_hi) in R, and the
+  // chunk's smallest start page.
+  extern __shared__ long long shard_tab[];
+  const int S = p.n_shards;
+  long long* first = shard_tab;
+  long long* live_lo = first + S + 1;
+  long long* live_hi = live_lo + S;
+  int* min_start = reinterpret_cast<int*>(live_hi + S);
+  __shared__ Query qs[kQueryChunk];
+  __shared__ long long q_start[kQueryChunk];
+  __shared__ unsigned acc_sum[kWarps][kQueryChunk];
+  __shared__ unsigned acc_cnt[kWarps][kQueryChunk];
+  const long long T = p.tile_rows;
+
+  for (int qc = 0; qc < nq; qc += kQueryChunk) {
+    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
+    for (int i = threadIdx.x; i < S; i += kThreads) min_start[i] = INT32_MAX;
+    for (int i = threadIdx.x; i < kWarps * kQueryChunk; i += kThreads) {
+      (&acc_sum[0][0])[i] = 0u;
+      (&acc_cnt[0][0])[i] = 0u;
+    }
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      qs[q] = stage_query(lo0[qc + q], hi0[qc + q], lo1[qc + q], hi1[qc + q],
+                          ts[qc + q]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < S * n; i += kThreads) {
+      const int s = i / n;
+      atomicMin(&min_start[s], start_pages[(long long)s * nq + qc + i - s * n]);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      long long total = 0;
+      for (int s = 0; s < S; ++s) {
+        const int lp = clamp_pages(local_pages ? local_pages[s] : p.n_pages,
+                                   p.n_pages);
+        const int st = clamp_pages(min_start[s], p.n_pages);
+        const long long base = (long long)s * p.shard_rows + p.off;
+        const long long lo = base + (long long)st * p.page_size;
+        const long long hi = base + (long long)lp * p.page_size;
+        first[s] = total;
+        live_lo[s] = lo;
+        live_hi[s] = hi;
+        if (lo < hi) total += (hi - 1) / T - lo / T + 1;
+      }
+      first[S] = total;
+    }
+    __syncthreads();
+
+    const long long total = first[S];
+    int s = 0, staged = -1;
+    for (long long f = blockIdx.x; f < total; f += gridDim.x) {
+      while (first[s + 1] <= f) ++s;  // shards with no live tile skip
+      if (s != staged) {  // stage the queries' first rows in shard s
+        __syncthreads();
+        for (int q = threadIdx.x; q < n; q += kThreads) {
+          const int st = clamp_pages(start_pages[(long long)s * nq + qc + q],
+                                     p.n_pages);
+          q_start[q] = (long long)s * p.shard_rows + p.off +
+                       (long long)st * p.page_size;
+        }
+        __syncthreads();
+        staged = s;
+      }
+      const long long tile0 = (live_lo[s] / T + (f - first[s])) * T;
+      const long long a = tile0 > live_lo[s] ? tile0 : live_lo[s];
+      const long long b = tile0 + T < live_hi[s] ? tile0 + T : live_hi[s];
+      stream_tile(p, qs, q_start, n, tile0, a, b, acc_sum, acc_cnt);
+    }
+    __syncthreads();
+
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      unsigned sum = 0u, cnt = 0u;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sum += acc_sum[w][q];
+        cnt += acc_cnt[w][q];
+      }
+      if (cnt != 0u) {  // no match in this block adds nothing
+        atomicAdd(out_sum + qc + q, sum);
+        atomicAdd(out_cnt + qc + q, cnt);
+      }
+    }
+    __syncthreads();  // the next chunk restages the shared arrays
+  }
+}
+
+// Makes `device` current for the guard's lifetime (the caller's stream
+// belongs to it) and puts the previous device back.
+class DeviceGuard {
+ public:
+  explicit DeviceGuard(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      switched_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceGuard() {
+    if (switched_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool switched_ = false;
+  cudaError_t err_;
+};
+
+// Blocks of the stream kernel that fill the current device at `smem`
+// bytes of dynamic shared memory: blocks per SM x SMs.  The answer is
+// the same on every call, so each thread keeps the last few.
+cudaError_t stream_fill(size_t smem, long long* blocks) {
+  struct Entry {
+    int device;
+    size_t smem;
+    long long blocks;
+  };
+  thread_local Entry cache[8];
+  thread_local int n_cached = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_cached && i < 8; ++i) {
+    if (cache[i].device == dev && cache[i].smem == smem) {
+      *blocks = cache[i].blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stream_filter_agg_kernel, kThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  *blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  cache[n_cached++ % 8] = Entry{dev, smem, *blocks};
+  return cudaSuccess;
+}
+
+// Zeroes the (2, nq) uint32 output (sums, then counts) on the stream.
+cudaError_t zero_out(void* out, int nq, void* stream) {
+  return cudaMemsetAsync(out, 0, sizeof(unsigned) * 2 * (size_t)nq,
+                         static_cast<cudaStream_t>(stream));
+}
+
+int stream_launch(const void* const* planes, int n_shards, int n_pages,
+                  int page_size, int tile_rows, const void* lo0,
+                  const void* hi0, const void* lo1, const void* hi1,
+                  const void* ts, const void* start_pages, int nq,
+                  const void* local_pages, void* out, void* stream) {
+  if (n_shards > kMaxShards || tile_rows <= 0 || tile_rows % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (nq <= 0) return 0;
+  cudaError_t err = zero_out(out, nq, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (n_shards <= 0 || n_pages <= 0 || page_size <= 0) return 0;
+  Stream p;
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(planes[0]) % 16;
+  p.vec = mis % 4 == 0;
+  for (int i = 0; i < 5; ++i) {
+    p.plane[i] = static_cast<const int32_t*>(planes[i]);
+    p.vec = p.vec && reinterpret_cast<uintptr_t>(planes[i]) % 16 == mis;
+  }
+  p.off = p.vec ? (int)(mis / 4) : 0;
+  p.shard_rows = (long long)n_pages * page_size;
+  p.n_shards = n_shards;
+  p.n_pages = n_pages;
+  p.page_size = page_size;
+  p.tile_rows = tile_rows;
+
+  const size_t smem = sizeof(long long) * (3 * (size_t)n_shards + 1) +
+                      sizeof(int) * (size_t)n_shards;
+  long long fill = 0;
+  err = stream_fill(smem, &fill);
+  if (err != cudaSuccess) return (int)err;
+  const long long upper =
+      (n_shards * p.shard_rows + p.off + tile_rows - 1) / tile_rows + n_shards;
+  const unsigned grid = (unsigned)(upper < fill ? upper : fill);
+  unsigned* sums = static_cast<unsigned*>(out);
+  stream_filter_agg_kernel<<<grid, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const int32_t*>(lo0), static_cast<const int32_t*>(hi0),
+      static_cast<const int32_t*>(lo1), static_cast<const int32_t*>(hi1),
+      static_cast<const int32_t*>(ts),
+      static_cast<const int32_t*>(start_pages), nq,
+      static_cast<const int32_t*>(local_pages), sums, sums + nq);
+  return (int)cudaGetLastError();
+}
+
+Planes make_planes(const void* pred0, const void* pred1, const void* agg,
+                   const void* begin_ts, const void* end_ts, long long n_rows,
                    int page_size, int tile_rows) {
   Planes p;
   p.pred0 = static_cast<const int32_t*>(pred0);
@@ -358,11 +624,6 @@ Planes make_planes(const void* pred0, long long stride0, const void* pred1,
   p.agg = static_cast<const int32_t*>(agg);
   p.begin_ts = static_cast<const int32_t*>(begin_ts);
   p.end_ts = static_cast<const int32_t*>(end_ts);
-  p.stride0 = stride0;
-  p.stride1 = stride1;
-  p.stride_agg = stride_agg;
-  p.stride_begin = stride_begin;
-  p.stride_end = stride_end;
   p.n_rows = n_rows;
   p.page_size = page_size;
   p.tile_rows = tile_rows;
@@ -371,102 +632,92 @@ Planes make_planes(const void* pred0, long long stride0, const void* pred1,
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes.  Each launches on `stream`,
-// does not synchronise, and returns cudaGetLastError() (0 on success).
-// The caller zeroes out_sum / out_cnt, (B,) uint32 each.
+// Plain C entry points, loaded with ctypes.  Each makes `device`
+// current, zeroes `out` -- (2, B) uint32: the B sums, then the B counts
+// -- and launches on `stream`, a stream of that device; none
+// synchronises.  Each returns the first CUDA error (0 on success).
+// Planes are unit-stride: row r of a plane is plane[r].
 
-extern "C" int batched_filter_agg_launch(
-    const void* pred0, long long stride0, const void* pred1,
-    long long stride1, const void* agg, long long stride_agg,
-    const void* begin_ts, long long stride_begin, const void* end_ts,
-    long long stride_end, long long n_rows, int page_size, int tile_rows,
-    const void* lo0, const void* hi0, const void* lo1, const void* hi1,
-    const void* ts, const void* start_pages, int nq, void* out_sum,
-    void* out_cnt, void* stream) {
-  if (n_rows <= 0 || nq <= 0) return 0;
-  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
-                               stride_agg, begin_ts, stride_begin, end_ts,
-                               stride_end, n_rows, page_size, tile_rows);
-  const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
-  batched_filter_agg_kernel<<<(unsigned)n_tiles, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int32_t*>(lo0), static_cast<const int32_t*>(hi0),
-      static_cast<const int32_t*>(lo1), static_cast<const int32_t*>(hi1),
-      static_cast<const int32_t*>(ts),
-      static_cast<const int32_t*>(start_pages), nq,
-      static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int filter_agg_launch(
-    const void* pred0, long long stride0, const void* pred1,
-    long long stride1, const void* agg, long long stride_agg,
-    const void* begin_ts, long long stride_begin, const void* end_ts,
-    long long stride_end, long long n_rows, int page_size, int tile_rows,
-    int lo0, int hi0, int lo1, int hi1, int ts, int start_page,
-    void* out_sum, void* out_cnt, void* stream) {
+extern "C" int filter_agg_launch(int device, const void* pred0,
+                                 const void* pred1, const void* agg,
+                                 const void* begin_ts, const void* end_ts,
+                                 long long n_rows, int page_size,
+                                 int tile_rows, int lo0, int hi0, int lo1,
+                                 int hi1, int ts, int start_page, void* out,
+                                 void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  const cudaError_t err = zero_out(out, 1, stream);
+  if (err != cudaSuccess) return (int)err;
   if (n_rows <= 0) return 0;
-  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
-                               stride_agg, begin_ts, stride_begin, end_ts,
-                               stride_end, n_rows, page_size, tile_rows);
+  const Planes p = make_planes(pred0, pred1, agg, begin_ts, end_ts, n_rows,
+                               page_size, tile_rows);
   const long long n_tiles = (n_rows + tile_rows - 1) / tile_rows;
   const Bounds b{lo0, hi0, lo1, hi1, ts, start_page};
+  unsigned* sums = static_cast<unsigned*>(out);
   filter_agg_kernel<<<(unsigned)n_tiles, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      p, b, static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
+                      static_cast<cudaStream_t>(stream)>>>(p, b, sums,
+                                                           sums + 1);
   return (int)cudaGetLastError();
 }
 
 extern "C" int masked_filter_agg_launch(
-    const void* pred0, long long stride0, const void* pred1,
-    long long stride1, const void* agg, long long stride_agg,
-    const void* begin_ts, long long stride_begin, const void* end_ts,
-    long long stride_end, long long n_rows, int page_size, int tile_rows,
-    const void* lo0, const void* hi0, const void* lo1, const void* hi1,
-    const void* ts, int nq, const void* words, int n_words,
-    const void* local_pages, int n_shards, int n_pages, void* out_sum,
-    void* out_cnt, void* stream) {
-  if (n_rows <= 0 || nq <= 0 || n_shards <= 0) return 0;
-  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
-                               stride_agg, begin_ts, stride_begin, end_ts,
-                               stride_end, n_rows, page_size, tile_rows);
+    int device, const void* pred0, const void* pred1, const void* agg,
+    const void* begin_ts, const void* end_ts, long long n_rows,
+    int page_size, int tile_rows, const void* lo0, const void* hi0,
+    const void* lo1, const void* hi1, const void* ts, int nq,
+    const void* words, int n_words, const void* local_pages, int n_shards,
+    int n_pages, void* out, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  if (nq <= 0) return 0;
+  const cudaError_t err = zero_out(out, nq, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (n_rows <= 0 || n_shards <= 0) return 0;
+  const Planes p = make_planes(pred0, pred1, agg, begin_ts, end_ts, n_rows,
+                               page_size, tile_rows);
   const int tile_pages = tile_rows / page_size;
   const long long n_tiles = ((long long)n_pages + tile_pages - 1) / tile_pages;
   const dim3 grid((unsigned)n_tiles, (unsigned)n_shards);
+  unsigned* sums = static_cast<unsigned*>(out);
   masked_filter_agg_kernel<<<grid, kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       p, n_pages, tile_pages, static_cast<const int32_t*>(lo0),
       static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
       static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts), nq,
       static_cast<const uint32_t*>(words), n_words,
-      static_cast<const int32_t*>(local_pages),
-      static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
+      static_cast<const int32_t*>(local_pages), sums, sums + nq);
   return (int)cudaGetLastError();
 }
 
+// K1: the stream path on one shard whose pages are all real;
+// start_pages is (B,), the (1, B) start table.
+extern "C" int batched_filter_agg_launch(
+    int device, const void* pred0, const void* pred1, const void* agg,
+    const void* begin_ts, const void* end_ts, int n_pages, int page_size,
+    int tile_rows, const void* lo0, const void* hi0, const void* lo1,
+    const void* hi1, const void* ts, const void* start_pages, int nq,
+    void* out, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  const void* planes[5] = {pred0, pred1, agg, begin_ts, end_ts};
+  return stream_launch(planes, 1, n_pages, page_size, tile_rows, lo0, hi0,
+                       lo1, hi1, ts, start_pages, nq, nullptr, out, stream);
+}
+
+// K4: the stream path over S <= kMaxShards stacked shards of n_pages
+// pages each; start_pages is (S, B), local_pages (S,).
 extern "C" int sharded_filter_agg_launch(
-    const void* pred0, long long stride0, const void* pred1,
-    long long stride1, const void* agg, long long stride_agg,
-    const void* begin_ts, long long stride_begin, const void* end_ts,
-    long long stride_end, long long n_rows, int page_size, int tile_rows,
-    const void* lo0, const void* hi0, const void* lo1, const void* hi1,
-    const void* ts, const void* start_pages, int nq,
-    const void* local_pages, int n_shards, int n_pages, void* out_sum,
-    void* out_cnt, void* stream) {
-  if (n_rows <= 0 || nq <= 0 || n_shards <= 0) return 0;
-  const Planes p = make_planes(pred0, stride0, pred1, stride1, agg,
-                               stride_agg, begin_ts, stride_begin, end_ts,
-                               stride_end, n_rows, page_size, tile_rows);
-  const int tile_pages = tile_rows / page_size;
-  const long long n_tiles = ((long long)n_pages + tile_pages - 1) / tile_pages;
-  const dim3 grid((unsigned)n_tiles, (unsigned)n_shards);
-  sharded_filter_agg_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      p, n_pages, tile_pages, static_cast<const int32_t*>(lo0),
-      static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
-      static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts),
-      static_cast<const int32_t*>(start_pages), nq,
-      static_cast<const int32_t*>(local_pages),
-      static_cast<unsigned*>(out_sum), static_cast<unsigned*>(out_cnt));
-  return (int)cudaGetLastError();
+    int device, const void* pred0, const void* pred1, const void* agg,
+    const void* begin_ts, const void* end_ts, int n_shards, int n_pages,
+    int page_size, int tile_rows, const void* lo0, const void* hi0,
+    const void* lo1, const void* hi1, const void* ts,
+    const void* start_pages, int nq, const void* local_pages, void* out,
+    void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  const void* planes[5] = {pred0, pred1, agg, begin_ts, end_ts};
+  return stream_launch(planes, n_shards, n_pages, page_size, tile_rows, lo0,
+                       hi0, lo1, hi1, ts, start_pages, nq, local_pages, out,
+                       stream);
 }

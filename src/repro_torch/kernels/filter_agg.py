@@ -2,9 +2,9 @@
 
 Port of the Pallas TPU kernel ``repro.kernels.filter_agg.filter_agg``,
 with its optional hybrid-scan ``start_page`` suffix.  The CUDA kernel
-is the B = 1 instance of K1's tile body (``csrc/filter_agg.cu``,
-``filter_agg_launch``): its own entry point, with the query's bounds
-passed by value, so a one-query K1 batch and K2 agree bit for bit.
+(``csrc/filter_agg.cu``, ``filter_agg_launch``) keeps the first port's
+tile body, shared with K3, with the query's bounds passed by value; a
+one-query K1 batch and K2 agree bit for bit (chip_smoke.py phase 2).
 
 ``filter_agg`` is the wrapper: for tensors on the CPU it takes
 ``filter_agg_plain``; for CUDA tensors it launches the kernel or
@@ -47,8 +47,8 @@ def filter_agg(pred0, pred1, agg, begin_ts, end_ts, lo0, hi0, lo1, hi1, ts,
     the hybrid-scan page skip (``ref.masked_filter_agg_ref``).  Bounds
     are Python ints or 0-d tensors; returns (sum, count), 0-d int32."""
     planes = (pred0, pred1, agg, begin_ts, end_ts)
-    strides = _bfa.check_planes(planes)
     dev = pred0.device
+    _bfa.check_planes(planes, unit_stride=dev.type == "cuda")
     if dev.type == "cpu":
         return filter_agg_plain(*planes, lo0, hi0, lo1, hi1, ts,
                                 start_page=start_page)
@@ -60,26 +60,21 @@ def filter_agg(pred0, pred1, agg, begin_ts, end_ts, lo0, hi0, lo1, hi1, ts,
     n_pages, page_size = pred0.shape
     bp = int(block_pages or _bfa.tile_pages(n_pages, page_size))
     vals = _scalars(lo0, hi0, lo1, hi1, ts, start_page or 0)
-    out_sum = torch.zeros((1,), dtype=torch.int32, device=dev)
-    out_cnt = torch.zeros((1,), dtype=torch.int32, device=dev)
     if n_pages == 0:
-        return out_sum[0], out_cnt[0]
-    plane_args = []
-    for x, s in zip(planes, strides):
-        plane_args += [x.data_ptr(), s]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library().filter_agg_launch(
-            *plane_args,
-            n_pages * page_size,
-            page_size,
-            bp * page_size,
-            *vals,
-            out_sum.data_ptr(),
-            out_cnt.data_ptr(),
-            stream,
-        )
+        out = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+        return out[0, 0], out[1, 0]
+    index, out, stream = _bfa._launch_args(dev, 1)
+    err = library().filter_agg_launch(
+        index,
+        *[x.data_ptr() for x in planes],
+        n_pages * page_size,
+        page_size,
+        bp * page_size,
+        *vals,
+        out.data_ptr(),
+        stream,
+    )
     if err != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {err}")
     launches += 1
-    return out_sum[0], out_cnt[0]
+    return out[0, 0], out[1, 0]

@@ -4,8 +4,9 @@ Port of ``repro.kernels.ops``: ``scan_table`` /
 ``scan_table_hybrid`` (K2), ``scan_table_batched`` (K1) and
 ``scan_table_batched_masked`` (K3, one shard) adapt the engine's Table
 layout -- columns stacked in one (n_pages, page_size, n_attrs) array
--- to the kernels' column-plane interface.  The planes are strided
-views of ``table.data``; nothing is copied.  The launch's tile is
+-- to the kernels' column-plane interface.  The planes are views of
+``table.data``, which the port stores attribute-major, so each plane
+is one unit-stride run; nothing is copied.  The launch's tile is
 ``batched_filter_agg.tile_pages`` unless ``block_pages`` is given;
 results do not depend on it.
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.table import attribute_major
 from repro_torch.kernels import batched_filter_agg as bfa
 from repro_torch.kernels import filter_agg as fa
 
@@ -26,11 +27,19 @@ def cuda():
     return torch.device("cuda")
 
 
+def _attr_major(values):
+    """A (..., page_size, n_attrs) numpy array in the port's
+    attribute-major table storage (CPU)."""
+    data = attribute_major(values.shape[:-2], *values.shape[-2:], "cpu")
+    data.copy_(torch.from_numpy(values))
+    return data
+
+
 def _planes(seed, n_pages=300, psz=64, n_attrs=5):
-    """Strided column planes of a (n_pages, psz, n_attrs) table with
-    values that wrap int32 sums and MVCC gaps."""
+    """Column planes of an attribute-major (n_pages, psz, n_attrs) table
+    with values that wrap int32 sums and MVCC gaps."""
     rng = np.random.default_rng(seed)
-    data = torch.from_numpy(rng.integers(
+    data = _attr_major(rng.integers(
         2**30, I32_MAX, size=(n_pages, psz, n_attrs)).astype(np.int32))
     begin = torch.from_numpy(
         rng.integers(0, 20, size=(n_pages, psz)).astype(np.int32))
@@ -80,7 +89,7 @@ def _masked_inputs(seed, S, n_pages=333, psz=32, cover="scattered"):
     """Stacked (S, n_pages, psz) planes with ragged real page counts
     (padding pages invisible), queries, and packed coverage words."""
     rng = np.random.default_rng(seed)
-    data = torch.from_numpy(rng.integers(
+    data = _attr_major(rng.integers(
         2**30, I32_MAX, size=(S, n_pages, psz, 5)).astype(np.int32))
     begin = rng.integers(0, 20, size=(S, n_pages, psz)).astype(np.int32)
     end = np.where(rng.random((S, n_pages, psz)) < 0.2,
@@ -212,3 +221,165 @@ def test_cuda_k4_rejects_bad_start_pages(cuda):
             *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
             starts[:, :-1].to(cuda), local.to(cuda))
     assert bfa.sharded_launches == before
+
+
+# The stream path (K1 / K4): page sizes whose pages are not a multiple
+# of 16 bytes (3) and that are (8, 32, 256), ragged shards, batches
+# that cross the 64-query chunk, sums that wrap int32.
+
+def _stream_inputs(seed, S, psz, B, n_pages=None, starts="mixed"):
+    """Attribute-major stacked (S, n_pages, psz) planes with ragged real
+    page counts (padding invisible), B queries and an (S, B) table of
+    local start pages: ``mixed`` (zeros, mid-shard, past the real
+    pages) or ``beyond`` (every start past local_pages)."""
+    rng = np.random.default_rng(seed)
+    n_pages = n_pages or max(8, 6000 // psz)
+    data = _attr_major(rng.integers(
+        2**30, I32_MAX, size=(S, n_pages, psz, 5)).astype(np.int32))
+    begin = rng.integers(0, 20, size=(S, n_pages, psz)).astype(np.int32)
+    end = np.where(rng.random((S, n_pages, psz)) < 0.2,
+                   rng.integers(5, 30, size=(S, n_pages, psz)),
+                   I32_MAX).astype(np.int32)
+    local = np.array([n_pages] + list(rng.integers(
+        n_pages // 2, n_pages + 1, size=S - 1)), np.int32)
+    for s in range(S):
+        begin[s, local[s]:] = I32_MAX
+    if starts == "beyond":
+        st = local[:, None] + rng.integers(0, 3, size=(S, B))
+    else:
+        st = rng.integers(0, n_pages + 2, size=(S, B))
+        st[:, 0] = 0
+    lo = rng.integers(2**30, 2**31 - 2**29, size=(B, 2))
+    q = [lo[:, 0], lo[:, 0] + 2**29, lo[:, 1], lo[:, 1] + 2**29,
+         rng.integers(0, 30, size=B)]
+    planes = (data[..., 1], data[..., 3], data[..., 2],
+              torch.from_numpy(begin), torch.from_numpy(end))
+    return (planes, [torch.from_numpy(np.asarray(c, np.int32)) for c in q],
+            torch.from_numpy(st.astype(np.int32)), torch.from_numpy(local))
+
+
+def _run_k4(cuda, planes, q, starts, local, block_pages=None):
+    before = bfa.sharded_launches
+    s, c = bfa.sharded_batched_filter_agg(
+        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
+        starts.to(cuda), local.to(cuda), block_pages=block_pages)
+    torch.cuda.synchronize()
+    assert bfa.sharded_launches == before + 1
+    ps, pc = bfa.sharded_batched_filter_agg_plain(*planes, *q, starts, local)
+    assert torch.equal(s.cpu(), ps) and torch.equal(c.cpu(), pc)
+    return s, c
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 65])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("psz", [3, 8, 32, 256])
+def test_cuda_stream_k4_matches_plain(cuda, psz, S, B):
+    planes, q, starts, local = _stream_inputs(psz * 7 + S * 3 + B, S, psz,
+                                              B)
+    s, c = _run_k4(cuda, planes, q, starts, local,
+                   block_pages=1 if B in (8, 65) else None)
+    assert c.any()  # the full scan of query 0 matches rows
+
+
+@pytest.mark.parametrize("B", [1, 8, 33, 65])
+@pytest.mark.parametrize("psz", [3, 8, 32, 256])
+def test_cuda_stream_k1_matches_plain(cuda, psz, B):
+    planes, q, starts, _ = _stream_inputs(psz + B, 1, psz, B)
+    planes = [x[0] for x in planes]
+    before = bfa.launches
+    s, c = bfa.batched_filter_agg(*[x.to(cuda) for x in planes],
+                                  *[x.to(cuda) for x in q],
+                                  starts[0].to(cuda))
+    torch.cuda.synchronize()
+    assert bfa.launches == before + 1
+    ps, pc = bfa.batched_filter_agg_plain(*planes, *q, starts[0])
+    assert torch.equal(s.cpu(), ps) and torch.equal(c.cpu(), pc)
+
+
+@pytest.mark.parametrize("psz", [3, 8, 32, 256])
+def test_cuda_stream_k4_starts_past_local_pages_give_zeros(cuda, psz):
+    planes, q, starts, local = _stream_inputs(psz, 4, psz, 8,
+                                              starts="beyond")
+    s, c = _run_k4(cuda, planes, q, starts, local)
+    assert not c.any() and not s.any()
+
+
+def test_cuda_stream_more_live_tiles_than_blocks(cuda):
+    planes, q, starts, local = _stream_inputs(31, 2, 3, 9, n_pages=3000)
+    starts[:, :] = 0
+    n_tiles = 2 * 3000 * 3 // bfa.stream_tile_rows(3, 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert n_tiles > 8 * sms  # at most 8 blocks of 256 threads per SM
+    _run_k4(cuda, planes, q, starts, local, block_pages=1)
+
+
+@pytest.mark.parametrize("B", [8, 65])
+@pytest.mark.parametrize("psz", [3, 256])
+def test_cuda_stream_k1_equals_k4_at_one_shard(cuda, psz, B):
+    planes, q, starts, _ = _stream_inputs(psz * B, 1, psz, B)
+    planes = [x.to(cuda) for x in planes]
+    q = [x.to(cuda) for x in q]
+    full = torch.tensor([planes[0].shape[1]], dtype=torch.int32,
+                        device=cuda)
+    s4, c4 = bfa.sharded_batched_filter_agg(*planes, *q, starts.to(cuda),
+                                            full)
+    s1, c1 = bfa.batched_filter_agg(*[x[0] for x in planes], *q,
+                                    starts[0].to(cuda))
+    assert torch.equal(s4, s1) and torch.equal(c4, c1)
+
+
+def test_cuda_stream_offset_planes_match_plain(cuda):
+    """Planes that start mid-word (every plane 12 bytes past a 16-byte
+    boundary) and planes that disagree modulo 16 bytes (page size 3 on
+    an odd page count) both take the stream path."""
+    planes, q, starts, local = _stream_inputs(41, 1, 3, 8, n_pages=400)
+    offset = [x[:, 1:] for x in planes]  # 3 rows = 12 bytes in
+    _run_k4(cuda, offset, q, starts, local - 1)
+    planes, q, starts, local = _stream_inputs(42, 1, 3, 8, n_pages=401)
+    _run_k4(cuda, planes, q, starts, local)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+def test_cuda_kernels_reject_strided_planes(cuda, kernel):
+    """Every kernel reads unit-stride planes only: a plane of a
+    row-major 21-attribute table (row stride 21) raises, and nothing
+    launches."""
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(
+        0, 100, size=(40, 8, 21)).astype(np.int32)).to(cuda)
+    begin = torch.zeros((40, 8), dtype=torch.int32, device=cuda)
+    end = torch.full((40, 8), I32_MAX, dtype=torch.int32, device=cuda)
+    planes = (data[..., 3], data[..., 1], data[..., 2], begin, end)
+    stacked = [x[None] for x in planes]
+    q = [torch.zeros(2, dtype=torch.int32, device=cuda)] * 5
+    local = torch.tensor([40], dtype=torch.int32, device=cuda)
+    call = {
+        "K1": lambda: bfa.batched_filter_agg(*planes, *q, q[0]),
+        "K2": lambda: fa.filter_agg(*planes, 0, 1, 0, 1, 0),
+        "K3": lambda: bfa.sharded_batched_filter_agg_masked(
+            *stacked, *q, torch.zeros((1, 2), dtype=torch.int32,
+                                      device=cuda), local),
+        "K4": lambda: bfa.sharded_batched_filter_agg(
+            *stacked, *q, q[0][None], local),
+    }[kernel]
+    counts = (bfa.launches, fa.launches, bfa.masked_launches,
+              bfa.sharded_launches)
+    with pytest.raises(ValueError, match="row stride 21"):
+        call()
+    assert (bfa.launches, fa.launches, bfa.masked_launches,
+            bfa.sharded_launches) == counts
+
+
+def test_cuda_k4_rejects_more_shards_than_its_shard_table(cuda):
+    """K4 keeps its shard table in shared memory (at most 1,024 shards):
+    a launch over more raises, and the counter does not move."""
+    S = 1025
+    planes = [torch.zeros((S, 1, 4), dtype=torch.int32, device=cuda)
+              for _ in range(5)]
+    q = [torch.zeros(2, dtype=torch.int32, device=cuda)] * 5
+    n4 = bfa.sharded_launches
+    with pytest.raises(RuntimeError, match="K4 launch failed"):
+        bfa.sharded_batched_filter_agg(
+            *planes, *q, torch.zeros((S, 2), dtype=torch.int32, device=cuda),
+            torch.ones(S, dtype=torch.int32, device=cuda))
+    assert bfa.sharded_launches == n4
