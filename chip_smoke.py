@@ -34,11 +34,17 @@ Phases, each asserted (any failure exits non-zero):
    (``kernels.ops.scan_table`` / ``scan_table_hybrid``) are held to the
    same numpy scan and to K1 on the final table.
 4. K3 (the masked scan) against its plain version at phase 2's size,
-   B in {1, 8, 16, 32}, under an empty, a prefix, a scattered and a full
-   coverage bitmap, plus one stacked S = 4 launch with ragged real page
-   counts and 14,645 pages per shard (not a multiple of 32): bit-equal;
-   a prefix of length L also equals K1 with start_pages = L, and the
-   full bitmap returns zeros.  Timed on the scattered bitmap at B = 8.
+   B in {1, 8, 16, 32}, under an empty, a prefix, a scattered, a runs
+   (every other window of 512 pages, the shape of phase 5's hot
+   windows) and a full coverage bitmap, plus one stacked S = 4 launch
+   with ragged real page counts and 14,645 pages per shard (not a
+   multiple of 32): bit-equal; a prefix of length L also equals K1 with
+   start_pages = L, and the full bitmap returns zeros.  The launch's
+   work items (coverage words) and grid are printed first.  Timed on
+   the scattered bitmap at B = 8 (the ``kernels`` line), the full one
+   at B = 8 and the runs one at B = 16 (phase 5's burst); the K3 and K1
+   wrappers' host times are then taken alternating in one window
+   (``masked_host``).
 5. The masked main path at the paper's 10M rows: a clustered table
    (attribute 1 is the row id, as in the reference's
    ``benchmarks/crack_on_scan.py``) in two databases from one seed, with
@@ -108,6 +114,7 @@ N_MASKED_BURSTS = 12
 MASKED_BURST = 16
 MASKED_PHASE_LEN = 48  # scans per hot window (3 bursts)
 MASKED_PAGES_PER_CYCLE = 64
+RUN_PAGES = 512  # phase 4's runs bitmap: every other window of 512 pages
 # Phase 7: the skewed 36/4/4/4 layout at the paper's scale (whole pages
 # of 256 rows: 9,999,360 rows), and the depth of the sharded loops.
 SKEW_PAGES = (29_295, 3_255, 3_255, 3_255)
@@ -172,6 +179,26 @@ def kernel_ms(fn) -> tuple:
     host = []
     call = cuda_ms(fn, host=host)
     return call, cuda_ms(fn, ahead=True), statistics.median(host)
+
+
+HOST_PAIR_CALLS = 200
+
+
+def host_ms_pair(**fns) -> dict:
+    """Median host-clock ms of each wrapper call in ``fns``, the calls
+    alternating, each from an idle card: ``{name}_host_ms``."""
+    import torch
+
+    times = {name: [] for name in fns}
+    for i in range(HOST_PAIR_CALLS * len(fns)):
+        name = list(fns)[i % len(fns)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[name]()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return {f"{name}_host_ms": statistics.median(t)
+            for name, t in times.items()}
 
 
 def scan_bound(n_pages, page_size, n_planes, start_pages):
@@ -333,10 +360,18 @@ def phase_masked_kernel(torch, bfa, tab):
     planes3 = tuple(x[None] for x in planes)
     local = torch.tensor([n_pages], dtype=torch.int32, device=dev)
     prefix = n_pages // 3
+    items, grid = bfa.masked_launch_shape(dev, 1, n_pages)
+    items4, grid4 = bfa.masked_launch_shape(dev, 4, n_pages // 4 - 3)
+    emit(dict(phase="masked_kernel_launch", S=1, pages=n_pages,
+              work_items=items, grid=grid, S4_work_items=items4,
+              S4_grid=grid4))
     covers = {}
     for name, pages in (("empty", []), ("prefix", range(prefix)),
                         ("scattered", np.flatnonzero(
                             rng.random(n_pages) < 0.5)),
+                        # phase 5's shape: hot windows of 512 pages
+                        ("runs", np.flatnonzero(
+                            np.arange(n_pages) // RUN_PAGES % 2 == 0)),
                         ("full", range(n_pages))):
         cov = PageCoverage(n_pages, psz, dev)
         cov.set_pages(list(pages))
@@ -369,7 +404,7 @@ def phase_masked_kernel(torch, bfa, tab):
             row = dict(phase="masked_kernel", kernel="K3", S=1, B=B,
                        cover=name, covered_pages=n_cov, equal=True,
                        max_abs_err=err)
-            if B == 8 and name in ("scattered", "full"):
+            if (B, name) in ((8, "scattered"), (8, "full"), (16, "runs")):
                 n0 = bfa.masked_launches
                 (row["kernel_ms"], row["device_ms"],
                  row["host_ms"]) = kernel_ms(
@@ -386,7 +421,17 @@ def phase_masked_kernel(torch, bfa, tab):
                            launches=bfa.masked_launches - n0)
                 if name == "scattered":
                     timed = row
+                    k3_call = (qt, words)
             emit(row)
+    # The K3 and K1 wrappers' host times in one window, alternating (the
+    # per-row host_ms of calls timed minutes apart drift by up to 2x).
+    qt, words = k3_call
+    zero = torch.zeros((8,), dtype=torch.int32, device=dev)
+    pair = host_ms_pair(
+        K3=lambda: bfa.sharded_batched_filter_agg_masked(*planes3, *qt,
+                                                         words, local),
+        K1=lambda: bfa.batched_filter_agg(*planes, *qt, zero))
+    emit(dict(phase="masked_host", B=8, calls=HOST_PAIR_CALLS, **pair))
     # Stacked shards: S = 4 of n_pages // 4 - 3 pages (14,645: not a
     # multiple of 32), ragged real page counts, a scattered bitmap per
     # shard.

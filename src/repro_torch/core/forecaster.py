@@ -20,13 +20,16 @@ alpha / beta / gamma):
     season:    fma(gamma, y / prev, (1-gamma) * s_{t-m})
     forecast:  fma(h, b_t, l_t) * s
 
-``_fma`` computes each one as the float64 product of two float32
-values (exact: 48 bits of mantissa), plus the float32 addend in
-float64, rounded to float32.  That rounds twice, first to float64 and
-then to float32; it can differ from a true fused multiply-add only
-when the float64 sum lands exactly halfway between two float32
-values, which tests/test_torch_executor.py has not met: it holds the
-states and forecasts bit-equal to the reference.  ``1 - alpha`` is
+``_fma`` rounds once, as a fused multiply-add does.  The product of
+two float32 values is exact in float64 (48 bits of mantissa); the
+float64 sum with the addend is not, and rounding it to float32 would
+round twice.  That differs from one rounding only where the float64
+sum lands exactly halfway between two float32 values while the exact
+sum does not: there the exact error term of the float64 addition
+(TwoSum) says on which side of the midpoint the exact sum lies, and
+``_fma`` takes that neighbour instead of the tie's even one.
+tests/test_torch_forecaster.py builds such sums in ``update`` and
+``forecast`` and holds them bit-equal to the reference.  ``1 - alpha`` is
 taken in float32, as in the reference, where alpha is a traced
 float32.  A batched state carries a leading batch axis on every
 field; ``update_batch`` / ``forecast_batch`` are the reference's
@@ -71,9 +74,17 @@ def _take(season, pos):
 
 
 def _fma(a, b, c):
-    """float32 ``a * b + c`` with the product unrounded (see the
-    module docstring)."""
-    return (a.double() * b.double() + c.double()).float()
+    """float32 ``a * b + c`` rounded once (see the module docstring)."""
+    p, c = a.double() * b.double(), c.double()  # p is exact
+    s = p + c
+    t = s - p  # TwoSum: p + c == s + e exactly
+    e = (p - (s - t)) + (c - t)
+    r = s.float()
+    d = s - r.double()  # exact (Sterbenz)
+    # On a tie, s is the midpoint of r and its neighbour r + 2d.
+    n = s + d
+    tie = (e != 0) & (d != 0) & n.isfinite() & (n.float().double() == n)
+    return torch.where(tie & ((e > 0) == (d > 0)), n.float(), r)
 
 
 def _f32(x, device):

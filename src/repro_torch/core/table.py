@@ -56,6 +56,7 @@ row there, ROADMAP.md queue 3 item 1) do not occur.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -95,6 +96,15 @@ def is_attribute_major(data: torch.Tensor) -> bool:
     return data[..., 0].is_contiguous()
 
 
+@functools.lru_cache(maxsize=64)
+def page_counts_tensor(pages: tuple, device: torch.device) -> torch.Tensor:
+    """(S,) int32 tensor of the page counts ``pages`` on ``device``,
+    made once per value: a table's page counts change only with a new
+    table (INSERT and reshard return one with its own tuple), so the
+    operand follows them.  Read-only: callers share it."""
+    return torch.tensor(pages, dtype=torch.int32, device=device)
+
+
 def rows_view(data: torch.Tensor) -> torch.Tensor:
     """``data`` as (rows, n_attrs), a view of the same storage: the
     leading strides of an attribute-major table merge, and ``view``
@@ -129,6 +139,11 @@ class Table(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    def local_pages_tensor(self) -> torch.Tensor:
+        """(1,) int32 page count on the table's device: the table as
+        one shard (``page_counts_tensor``, shared and read-only)."""
+        return page_counts_tensor((self.n_pages,), self.device)
 
 
 def make_table(n_pages: int, page_size: int, n_attrs: int,
@@ -325,9 +340,9 @@ class ShardedTable(NamedTuple):
         return tuple(self.shard(s) for s in range(self.n_shards))
 
     def local_pages_tensor(self) -> torch.Tensor:
-        """(S,) int32 ``local_pages`` on the table's device."""
-        return torch.tensor(self.local_pages, dtype=torch.int32,
-                            device=self.device)
+        """(S,) int32 ``local_pages`` on the table's device
+        (``page_counts_tensor``, shared and read-only)."""
+        return page_counts_tensor(tuple(self.local_pages), self.device)
 
     def global_page_ids(self) -> torch.Tensor:
         """(S, max_pages) int64 round-robin global page id of every

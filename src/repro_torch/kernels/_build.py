@@ -32,10 +32,11 @@ SIGNATURES = {
     "batched_filter_agg_launch": _PLANES + [_I] * 3 + [_P] * 6 + [
         _I, _P, _P],
     "filter_agg_launch": _PLANES + [_LL] + [_I] * 8 + [_P, _P],
-    "masked_filter_agg_launch": _PLANES + [_LL, _I, _I] + [_P] * 5 + [
-        _I, _P, _I, _P, _I, _I, _P, _P],
+    "masked_filter_agg_launch": _PLANES + [_I] * 3 + [_P] * 5 + [
+        _I, _P, _I, _P, _P, _P],
     "sharded_filter_agg_launch": _PLANES + [_I] * 4 + [_P] * 6 + [
         _I, _P, _P, _P],
+    "masked_filter_agg_shape": [_I] * 3 + [_P],
 }
 
 _LIB = None

@@ -33,15 +33,19 @@ stream and launches.
 
 Tiling: K1 / K4 walk a list of live tiles of ``stream_tile_rows``
 rows (``TILE_ROWS``, or ``block_pages`` pages rounded up to a 16-byte
-multiple) with a grid sized to the card; K3 gives one CUDA block
-``block_pages`` whole pages (``tile_pages``, about ``TILE_ROWS``
-rows).  The result does not depend on the tile size -- int32
+multiple) with a grid sized to the card.  K3 has no tile: its work
+items are the coverage words (32 pages each) of every shard, walked by
+a grid sized to the card (``masked_launch_shape``); a block lists the
+open pages of the words it pulls and streams about ``TILE_ROWS`` rows
+of them per step.  The result does not depend on the tiling -- int32
 additions wrap associatively and commutatively;
 tests/test_torch_kernels_cuda.py holds the kernels against the plain
-versions at several tile sizes.
+versions at several tile and page sizes and coverage patterns.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -54,8 +58,8 @@ from repro_torch.kernels.ref import (
 I32_MIN = -(2**31)
 I32_MAX = 2**31 - 1
 
-# Rows of one tile: 256 threads x 4 rows x 4 passes (K3), 256 threads
-# x 4 sixteen-byte words of 4 rows (K1 / K4).
+# Rows of one tile: 256 threads x 4 sixteen-byte words of 4 rows (K1 /
+# K4; K3's step), 256 threads x 4 rows x 4 passes (K2).
 TILE_ROWS = 4096
 
 launches = 0  # K1 launches since the last reset (plain runs excluded)
@@ -319,7 +323,6 @@ def sharded_batched_filter_agg_masked(
     tss,
     words,
     local_pages,
-    block_pages: int | None = None,
 ):
     """Multi-shard multi-query scan of the UNCOVERED pages (K3).
 
@@ -342,13 +345,14 @@ def sharded_batched_filter_agg_masked(
                         ("los0", "his0", "los1", "his1", "tss"))
     ]
     local_pages = _query_operand(local_pages, n_shards, dev, "local_pages")
-    if words.dtype != torch.int32 or words.dim() != 2 or (
-            words.shape[0] != n_shards):
+    shape = words.shape
+    if words.dtype != torch.int32 or len(shape) != 2 or (
+            shape[0] != n_shards):
         raise ValueError(f"words must be ({n_shards}, W) int32, got "
-                         f"{tuple(words.shape)} {words.dtype}")
+                         f"{tuple(shape)} {words.dtype}")
     if words.device != dev:
         raise ValueError(f"words is on {words.device}, expected {dev}")
-    n_words = words.shape[1]
+    n_words = shape[1]
     if n_words * 32 < n_pages:
         raise ValueError(f"{n_words} coverage words per shard cannot cover "
                          f"{n_pages} pages (need W * 32 >= n_pages)")
@@ -364,25 +368,37 @@ def sharded_batched_filter_agg_masked(
     from repro_torch.kernels._build import library
 
     global masked_launches
-    bp = int(block_pages or tile_pages(n_pages, page_size))
     index, out, stream = _launch_args(dev, nq)
     err = library().masked_filter_agg_launch(
         index,
         *[x.data_ptr() for x in planes],
-        n_shards * n_pages * page_size,
+        n_shards,
+        n_pages,
         page_size,
-        bp * page_size,
         *[x.data_ptr() for x in ops],
         nq,
         words.data_ptr(),
         n_words,
         local_pages.data_ptr(),
-        n_shards,
-        n_pages,
         out.data_ptr(),
         stream,
     )
-    if err != 0:
+    if err != 0:  # among them about 2^31 stacked pages or more
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     masked_launches += 1
     return out.unbind(0)
+
+
+def masked_launch_shape(device, n_shards: int, n_pages: int):
+    """(work items, grid blocks) of a K3 launch over ``n_shards`` shards
+    of ``n_pages`` pages on the CUDA ``device``: one item per coverage
+    word, a grid sized to the card."""
+    from repro_torch.kernels._build import library
+
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    shape = (ctypes.c_longlong * 2)()
+    err = library().masked_filter_agg_shape(index, n_shards, n_pages, shape)
+    if err != 0:
+        raise RuntimeError(f"K3 grid query failed: CUDA error {err}")
+    return int(shape[0]), int(shape[1])

@@ -66,13 +66,40 @@
 // Queries are taken in chunks of kQueryChunk whose bounds sit in shared
 // memory; a batch larger than that streams its rows once per chunk.
 //
-// K2 and K3 keep the first port's tile body (scan_tile): one block per
-// tile of whole pages, one row per thread and load, unit-stride planes
-// as for the stream path, so their loads coalesce.  Their
-// redesign on the stream path comes next (K3's fully covered tiles
-// belong in the live-tile list).  K2 is the single-query scan with its
-// bounds passed by value; the tests hold it equal to a one-query K1
-// batch.
+// K3 runs the stream path's loads and compares over the pages that a
+// coverage bitmap leaves open, on S stacked shards.  What bounds it is
+// bytes again, now those of the open pages only (five int32 planes per
+// open row, plus one 4-byte coverage word per 32 pages), up to B ~ 12.
+// Its design:
+//   * A persistent grid over coverage words.  The work items are the
+//     words of every shard, flat over S x ceil(n_pages / 32); the grid
+//     fills the card and block b takes items b, b + gridDim.x, ...  A
+//     warp pulls 32 of its items at once: each lane loads one word,
+//     ORs in the bits of pages at or past min(local_pages[s], n_pages)
+//     (a word wholly past them is not loaded at all, so no word at or
+//     past W is read), and the open pages (~word) are listed in a
+//     shared-memory ring with __popc over a warp scan.  A word that is
+//     all ones costs its 4-byte load and no row.
+//   * Open pages, not masked lanes.  A step streams kStepWords 16-byte
+//     words of the pending open pages (about kStepRows rows), each
+//     page as the run of 16-byte words from the one holding its first
+//     row, with the stream path's load_word: int4 loads inside the
+//     page, row by row at its edges (page sizes that are not a
+//     multiple of 4, planes that start mid-word) and where the planes
+//     disagree modulo 16 bytes.  A block pulls again only when less
+//     than a step is pending, so small pages fill a step from many
+//     words.  Per 16-byte word the address costs one 32-bit division
+//     (word -> ring page); there is no page or coverage test per row.
+//   * The stream path's query side: stage_query / row_match, queries
+//     in kQueryChunk chunks in shared memory, per-query partials in
+//     shared memory across all of a block's items and one atomicAdd
+//     per (block, query, chunk).
+//
+// K2 keeps the first port's tile body (scan_tile): one block per tile
+// of whole pages, one row per thread and load, unit-stride planes as
+// for the stream path, so its loads coalesce.  It is the single-query
+// scan with its bounds passed by value; the tests hold it equal to a
+// one-query K1 batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,27 +134,14 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
-// K3's page filter: a row takes part only if its page's coverage bit
-// is 0.  `words` is the shard's row of packed little-endian words
-// (bit p & 31 of word p >> 5 is local page p), `page_base` the global
-// page id of the shard's local page 0.
-struct Coverage {
-  const uint32_t* words;
-  long long page_base;
-};
-
-// Scan rows [row0, row_end) for the nq <= kQueryChunk queries whose
-// bounds are staged in shared memory, and add the block's partial sums
-// into out_sum[0:nq] / out_cnt[0:nq].  With kMasked, rows of covered
-// pages are dropped (the caller keeps row_end inside the pages that
-// have a word).  Every thread of the block must call it: the loops
-// below are uniform across the block, so the warp shuffles always see
-// full warps.
-template <bool kMasked>
+// K2's tile body: scan rows [row0, row_end) for the nq <= kQueryChunk
+// queries whose bounds are staged in shared memory, and add the block's
+// partial sums into out_sum[0:nq] / out_cnt[0:nq].  Every thread of the
+// block must call it: the loops below are uniform across the block, so
+// the warp shuffles always see full warps.
 __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
                           long long row0, long long row_end,
-                          const Coverage& cov, unsigned* out_sum,
-                          unsigned* out_cnt) {
+                          unsigned* out_sum, unsigned* out_cnt) {
   __shared__ unsigned acc_sum[kWarps][kQueryChunk];
   __shared__ unsigned acc_cnt[kWarps][kQueryChunk];
   const int warp = threadIdx.x >> 5;
@@ -149,10 +163,6 @@ __device__ void scan_tile(const Planes& p, const Bounds* qs, int nq,
     for (int k = 0; k < kRowsPerThread; ++k) {
       const long long r = base + (long long)k * kThreads + threadIdx.x;
       live[k] = r < row_end;
-      if (kMasked && live[k]) {  // a covered page's rows load nothing
-        const int lp = (int)(r / p.page_size - cov.page_base);
-        live[k] = ((cov.words[lp >> 5] >> (lp & 31)) & 1u) == 0u;
-      }
       if (live[k]) {
         v0[k] = p.pred0[r];
         v1[k] = p.pred1[r];
@@ -212,62 +222,7 @@ filter_agg_kernel(Planes p, Bounds b, unsigned* out_sum, unsigned* out_cnt) {
   if (last_page < b.start_page) return;  // inside the indexed prefix
   if (threadIdx.x == 0) qs[0] = b;
   __syncthreads();
-  scan_tile<false>(p, qs, 1, row0, row_end, Coverage{}, out_sum, out_cnt);
-}
-
-// K3: the scan over the pages a coverage bitmap leaves uncovered, over
-// S stacked shards of n_pages pages each (a plain table is S = 1).
-// Grid (tiles of one shard, shard).  What bounds it is the same as K1
-// (bytes, of the uncovered pages only); the TPU kernel's live-block
-// window and pre-DMA skip become an early return: a block first reads
-// its tile's coverage words (at most ceil(tile_pages / 32) + 1) and
-// returns before it loads any row when every page of its tile is
-// covered or lies at or past the shard's local_pages.  Inside a live
-// tile each row tests its page's bit.
-//
-// Unlike the TPU kernel, which reads words[s, p / 32] for padding
-// pages past W * 32, no word at or past W is ever read: the wrapper
-// requires W * 32 >= n_pages, and pages at or past local_pages[s]
-// contribute nothing.  Where the reference's contract holds (padding
-// pages carry begin_ts = INT32_MAX and so are invisible) the results
-// are the same.
-__global__ void __launch_bounds__(kThreads)
-masked_filter_agg_kernel(Planes p, int n_pages, int tile_pages,
-                         const int32_t* __restrict__ lo0,
-                         const int32_t* __restrict__ hi0,
-                         const int32_t* __restrict__ lo1,
-                         const int32_t* __restrict__ hi1,
-                         const int32_t* __restrict__ ts, int nq,
-                         const uint32_t* __restrict__ words, int n_words,
-                         const int32_t* __restrict__ local_pages,
-                         unsigned* out_sum, unsigned* out_cnt) {
-  __shared__ Bounds qs[kQueryChunk];
-  const int s = blockIdx.y;
-  const long long first = (long long)blockIdx.x * tile_pages;
-  long long last = first + tile_pages;  // exclusive
-  if (last > n_pages) last = n_pages;
-  if (last > local_pages[s]) last = local_pages[s];
-  if (first >= last) return;  // padding past the shard's real pages
-
-  const Coverage cov{words + (long long)s * n_words, (long long)s * n_pages};
-  int open = 0;
-  for (long long pg = first + threadIdx.x; pg < last; pg += kThreads) {
-    open |= ((cov.words[pg >> 5] >> (pg & 31)) & 1u) == 0u;
-  }
-  if (!__syncthreads_or(open)) return;  // every page covered: load nothing
-
-  const long long row0 = (cov.page_base + first) * p.page_size;
-  const long long row_end = (cov.page_base + last) * p.page_size;
-  for (int qc = 0; qc < nq; qc += kQueryChunk) {
-    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
-    for (int q = threadIdx.x; q < n; q += kThreads) {
-      qs[q] = Bounds{lo0[qc + q], hi0[qc + q], lo1[qc + q],
-                     hi1[qc + q], ts[qc + q], 0};
-    }
-    __syncthreads();
-    scan_tile<true>(p, qs, n, row0, row_end, cov, out_sum + qc,
-                    out_cnt + qc);
-  }
+  scan_tile(p, qs, 1, row0, row_end, out_sum, out_cnt);
 }
 
 // ---------------------------------------------------------------------
@@ -347,6 +302,21 @@ __device__ __forceinline__ unsigned row_match(const Query& q,
          (unsigned)(v[3][k] <= q.ts) & (unsigned)(q.ts < v[4][k]);
 }
 
+// Adds the matches of query Q among every row of v to (s, c).
+__device__ __forceinline__ void add_matches(const Query& Q,
+                                            const int (&v)[kVecs][5][4],
+                                            unsigned& s, unsigned& c) {
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned m = row_match(Q, v[j], k);
+      s += (unsigned)v[j][2][k] & (0u - m);
+      c += m;
+    }
+  }
+}
+
 // One tile of the live-tile list: rows [a, b) of the tile that starts
 // at R = tile0, in steps of kStepRows.  q_start[q] is the first row (R)
 // that query q counts in the current shard.  Every thread of the block
@@ -372,15 +342,7 @@ __device__ __forceinline__ void stream_tile(
       if (!Q.live) continue;  // an empty range matches nothing
       unsigned s = 0u, c = 0u;
       if (qa <= a || qa <= step) {  // every loaded row is past its start
-#pragma unroll
-        for (int j = 0; j < kVecs; ++j) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const unsigned m = row_match(Q, v[j], k);
-            s += (unsigned)v[j][2][k] & (0u - m);
-            c += m;
-          }
-        }
+        add_matches(Q, v, s, c);
       } else {  // the tile straddles the query's start: test each row
         const long long d = qa - step;
         const int lim = d > kStepRows ? kStepRows : (int)d;
@@ -510,6 +472,166 @@ stream_filter_agg_kernel(Stream p, const int32_t* __restrict__ lo0,
   }
 }
 
+// ---------------------------------------------------------------------
+// K3: the stream path over the pages a coverage bitmap leaves open
+// (notes at the top of the file).
+
+constexpr int kPull = 32;  // coverage words a block pulls at once: a warp
+// The open-page ring, in pages (a power of two).  A block pulls only
+// while less than a step is pending, so at most 1,024 pages are pending
+// then, and a pull adds at most kPull * 32 = 1,024.
+constexpr int kRing = 2048;
+constexpr int kStepWords = kThreads * kVecs;  // 16-byte words per step
+
+// Open pages are streamed page by page: a page spans at most
+// page_words 16-byte words of R, from the word holding its first row.
+struct Masked {
+  Stream p;
+  const uint32_t* words;       // (S, n_words) coverage words
+  const int32_t* local_pages;  // (S,) real pages per shard
+  int n_words;
+  int shard_words;  // work items per shard: ceil(n_pages / 32)
+  unsigned page_words;
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+masked_filter_agg_kernel(Masked m, const int32_t* __restrict__ lo0,
+                         const int32_t* __restrict__ hi0,
+                         const int32_t* __restrict__ lo1,
+                         const int32_t* __restrict__ hi1,
+                         const int32_t* __restrict__ ts, int nq,
+                         unsigned* out_sum, unsigned* out_cnt) {
+  // Open pages as stacked page ids (s * n_pages + page), at positions
+  // [head, tail) mod kRing; the head page's first `skip` words are done.
+  __shared__ int ring[kRing];
+  __shared__ uint32_t pull_open[kPull];
+  __shared__ int pull_page[kPull];     // stacked id of each word's page 0
+  __shared__ int pull_pos[kPull + 1];  // ring offset of each word's pages
+  __shared__ Query qs[kQueryChunk];
+  __shared__ unsigned acc_sum[kWarps][kQueryChunk];
+  __shared__ unsigned acc_cnt[kWarps][kQueryChunk];
+  const Stream& p = m.p;
+  const long long n_items = (long long)p.n_shards * m.shard_words;
+  const long long stride = (long long)gridDim.x * kPull;
+  const unsigned wpp = m.page_words;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  for (int qc = 0; qc < nq; qc += kQueryChunk) {
+    const int n = nq - qc < kQueryChunk ? nq - qc : kQueryChunk;
+    for (int i = threadIdx.x; i < kWarps * kQueryChunk; i += kThreads) {
+      (&acc_sum[0][0])[i] = 0u;
+      (&acc_cnt[0][0])[i] = 0u;
+    }
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      qs[q] = stage_query(lo0[qc + q], hi0[qc + q], lo1[qc + q], hi1[qc + q],
+                          ts[qc + q]);
+    }
+    __syncthreads();
+
+    long long next = blockIdx.x;  // this block's next work item
+    unsigned head = 0, tail = 0, skip = 0;
+    for (;;) {
+      // Pull coverage words until a step's words are pending or the
+      // block's items run out; each block takes every gridDim.x-th word.
+      while ((long long)(tail - head) * wpp - skip < kStepWords &&
+             next < n_items) {
+        if (warp == 0) {
+          const long long f = next + (long long)lane * gridDim.x;
+          uint32_t open = 0u;
+          int page0 = 0;
+          if (f < n_items) {  // fewer than 2^31 items (the launch checks)
+            const int s = (int)f / m.shard_words;
+            const int w = (int)f - s * m.shard_words;
+            const int live = clamp_pages(m.local_pages[s], p.n_pages) - w * 32;
+            if (live > 0) {  // words wholly past the real pages: no load
+              open = ~__ldg(m.words + (long long)s * m.n_words + w);
+              if (live < 32) open &= (1u << live) - 1u;
+            }
+            page0 = s * p.n_pages + w * 32;
+          }
+          const int c = __popc(open);
+          int incl = c;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, incl, o);
+            if (lane >= o) incl += t;
+          }
+          pull_open[lane] = open;
+          pull_page[lane] = page0;
+          pull_pos[lane] = incl - c;
+          if (lane == 31) pull_pos[kPull] = incl;
+        }
+        __syncthreads();  // also: the last step's ring reads are done
+        for (int i = threadIdx.x; i < kPull * 32; i += kThreads) {
+          const uint32_t open = pull_open[i >> 5];
+          const int b = i & 31;
+          if ((open >> b) & 1u) {
+            const int pos = pull_pos[i >> 5] + __popc(open & ((1u << b) - 1u));
+            ring[(tail + pos) & (kRing - 1)] = pull_page[i >> 5] + b;
+          }
+        }
+        tail += pull_pos[kPull];
+        next += stride;
+        __syncthreads();
+      }
+      const long long pending = (long long)(tail - head) * wpp - skip;
+      if (pending <= 0) break;
+      const unsigned nw =
+          pending < kStepWords ? (unsigned)pending : (unsigned)kStepWords;
+
+      // One step: word x of the pending run lies in ring page x / wpp.
+      int v[kVecs][5][4];
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) {
+        const unsigned x = (unsigned)(j * kThreads) + threadIdx.x;
+        if (x < nw) {
+          const unsigned k = (skip + x) / wpp;
+          const unsigned i = skip + x - k * wpp;
+          const long long a =
+              (long long)ring[(head + k) & (kRing - 1)] * p.page_size + p.off;
+          load_word(p, (a & ~3LL) + 4LL * i, a, a + p.page_size, v[j]);
+        } else {  // past the pending words: no row
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            v[j][0][k] = v[j][1][k] = v[j][2][k] = v[j][3][k] = 0;
+            v[j][4][k] = INT32_MIN;
+          }
+        }
+      }
+      for (int q = 0; q < n; ++q) {
+        const Query Q = qs[q];
+        if (!Q.live) continue;  // an empty range matches nothing
+        unsigned s = 0u, c = 0u;
+        add_matches(Q, v, s, c);
+        s = warp_sum(s);
+        c = warp_sum(c);
+        if (lane == 0) {
+          acc_sum[warp][q] += s;
+          acc_cnt[warp][q] += c;
+        }
+      }
+      head += (skip + nw) / wpp;
+      skip = (skip + nw) % wpp;
+    }
+    __syncthreads();
+
+    for (int q = threadIdx.x; q < n; q += kThreads) {
+      unsigned sum = 0u, cnt = 0u;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        sum += acc_sum[w][q];
+        cnt += acc_cnt[w][q];
+      }
+      if (cnt != 0u) {  // no match in this block adds nothing
+        atomicAdd(out_sum + qc + q, sum);
+        atomicAdd(out_cnt + qc + q, cnt);
+      }
+    }
+    __syncthreads();  // the next chunk restages the shared arrays
+  }
+}
+
 // Makes `device` current for the guard's lifetime (the caller's stream
 // belongs to it) and puts the previous device back.
 class DeviceGuard {
@@ -532,12 +654,13 @@ class DeviceGuard {
   cudaError_t err_;
 };
 
-// Blocks of the stream kernel that fill the current device at `smem`
-// bytes of dynamic shared memory: blocks per SM x SMs.  The answer is
-// the same on every call, so each thread keeps the last few.
-cudaError_t stream_fill(size_t smem, long long* blocks) {
+// Blocks of `kernel` that fill the current device at `smem` bytes of
+// dynamic shared memory: blocks per SM x SMs.  The answer is the same on
+// every call, so each thread keeps the last few.
+cudaError_t fill_blocks(const void* kernel, size_t smem, long long* blocks) {
   struct Entry {
     int device;
+    const void* kernel;
     size_t smem;
     long long blocks;
   };
@@ -547,7 +670,8 @@ cudaError_t stream_fill(size_t smem, long long* blocks) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   for (int i = 0; i < n_cached && i < 8; ++i) {
-    if (cache[i].device == dev && cache[i].smem == smem) {
+    if (cache[i].device == dev && cache[i].kernel == kernel &&
+        cache[i].smem == smem) {
       *blocks = cache[i].blocks;
       return cudaSuccess;
     }
@@ -555,19 +679,51 @@ cudaError_t stream_fill(size_t smem, long long* blocks) {
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stream_filter_agg_kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
   }
   if (err != cudaSuccess) return err;
   *blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  cache[n_cached++ % 8] = Entry{dev, smem, *blocks};
+  cache[n_cached++ % 8] = Entry{dev, kernel, smem, *blocks};
   return cudaSuccess;
+}
+
+// K3's launch: one work item per coverage word of each shard, on a grid
+// that fills the card (or one block per item when there are fewer).
+cudaError_t masked_grid(int n_shards, int n_pages, long long* items,
+                        long long* grid) {
+  long long fill = 0;
+  const cudaError_t err = fill_blocks(
+      reinterpret_cast<const void*>(masked_filter_agg_kernel), 0, &fill);
+  *items = (long long)n_shards * ((n_pages + 31) / 32);
+  *grid = *items < fill ? *items : fill;
+  return err;
 }
 
 // Zeroes the (2, nq) uint32 output (sums, then counts) on the stream.
 cudaError_t zero_out(void* out, int nq, void* stream) {
   return cudaMemsetAsync(out, 0, sizeof(unsigned) * 2 * (size_t)nq,
                          static_cast<cudaStream_t>(stream));
+}
+
+// The stream path's view of five planes: 16-byte loads when every plane
+// has the same address modulo 16 bytes, a multiple of 4 bytes.
+Stream make_stream(const void* const* planes, int n_shards, int n_pages,
+                   int page_size) {
+  Stream p;
+  const uintptr_t mis = reinterpret_cast<uintptr_t>(planes[0]) % 16;
+  p.vec = mis % 4 == 0;
+  for (int i = 0; i < 5; ++i) {
+    p.plane[i] = static_cast<const int32_t*>(planes[i]);
+    p.vec = p.vec && reinterpret_cast<uintptr_t>(planes[i]) % 16 == mis;
+  }
+  p.off = p.vec ? (int)(mis / 4) : 0;
+  p.shard_rows = (long long)n_pages * page_size;
+  p.n_shards = n_shards;
+  p.n_pages = n_pages;
+  p.page_size = page_size;
+  p.tile_rows = 0;
+  return p;
 }
 
 int stream_launch(const void* const* planes, int n_shards, int n_pages,
@@ -582,24 +738,14 @@ int stream_launch(const void* const* planes, int n_shards, int n_pages,
   cudaError_t err = zero_out(out, nq, stream);
   if (err != cudaSuccess) return (int)err;
   if (n_shards <= 0 || n_pages <= 0 || page_size <= 0) return 0;
-  Stream p;
-  const uintptr_t mis = reinterpret_cast<uintptr_t>(planes[0]) % 16;
-  p.vec = mis % 4 == 0;
-  for (int i = 0; i < 5; ++i) {
-    p.plane[i] = static_cast<const int32_t*>(planes[i]);
-    p.vec = p.vec && reinterpret_cast<uintptr_t>(planes[i]) % 16 == mis;
-  }
-  p.off = p.vec ? (int)(mis / 4) : 0;
-  p.shard_rows = (long long)n_pages * page_size;
-  p.n_shards = n_shards;
-  p.n_pages = n_pages;
-  p.page_size = page_size;
+  Stream p = make_stream(planes, n_shards, n_pages, page_size);
   p.tile_rows = tile_rows;
 
   const size_t smem = sizeof(long long) * (3 * (size_t)n_shards + 1) +
                       sizeof(int) * (size_t)n_shards;
   long long fill = 0;
-  err = stream_fill(smem, &fill);
+  err = fill_blocks(reinterpret_cast<const void*>(stream_filter_agg_kernel),
+                    smem, &fill);
   if (err != cudaSuccess) return (int)err;
   const long long upper =
       (n_shards * p.shard_rows + p.off + tile_rows - 1) / tile_rows + n_shards;
@@ -661,33 +807,56 @@ extern "C" int filter_agg_launch(int device, const void* pred0,
   return (int)cudaGetLastError();
 }
 
+// K3: the stream path over the open pages of S stacked shards of n_pages
+// pages; words is (S, n_words) with n_words * 32 >= n_pages,
+// local_pages (S,).
 extern "C" int masked_filter_agg_launch(
     int device, const void* pred0, const void* pred1, const void* agg,
-    const void* begin_ts, const void* end_ts, long long n_rows,
-    int page_size, int tile_rows, const void* lo0, const void* hi0,
-    const void* lo1, const void* hi1, const void* ts, int nq,
-    const void* words, int n_words, const void* local_pages, int n_shards,
-    int n_pages, void* out, void* stream) {
+    const void* begin_ts, const void* end_ts, int n_shards, int n_pages,
+    int page_size, const void* lo0, const void* hi0, const void* lo1,
+    const void* hi1, const void* ts, int nq, const void* words, int n_words,
+    const void* local_pages, void* out, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
+  // Stacked page ids (and one word's worth past them) are int32.
+  if ((long long)n_words * 32 < n_pages ||
+      (long long)n_shards * n_pages + 32 > INT32_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (nq <= 0) return 0;
-  const cudaError_t err = zero_out(out, nq, stream);
+  cudaError_t err = zero_out(out, nq, stream);
   if (err != cudaSuccess) return (int)err;
-  if (n_rows <= 0 || n_shards <= 0) return 0;
-  const Planes p = make_planes(pred0, pred1, agg, begin_ts, end_ts, n_rows,
-                               page_size, tile_rows);
-  const int tile_pages = tile_rows / page_size;
-  const long long n_tiles = ((long long)n_pages + tile_pages - 1) / tile_pages;
-  const dim3 grid((unsigned)n_tiles, (unsigned)n_shards);
+  if (n_shards <= 0 || n_pages <= 0 || page_size <= 0) return 0;
+  const void* planes[5] = {pred0, pred1, agg, begin_ts, end_ts};
+  Masked m;
+  m.p = make_stream(planes, n_shards, n_pages, page_size);
+  m.words = static_cast<const uint32_t*>(words);
+  m.local_pages = static_cast<const int32_t*>(local_pages);
+  m.n_words = n_words;
+  m.shard_words = (n_pages + 31) / 32;
+  // Every page starts on the same 16-byte phase when page_size is a
+  // multiple of 4; otherwise a page may start anywhere in a word.
+  m.page_words = page_size % 4 == 0 ? page_size / 4 + (m.p.off != 0)
+                                    : (page_size + 2) / 4 + 1;
+  long long items = 0, grid = 0;
+  err = masked_grid(n_shards, n_pages, &items, &grid);
+  if (err != cudaSuccess) return (int)err;
   unsigned* sums = static_cast<unsigned*>(out);
-  masked_filter_agg_kernel<<<grid, kThreads, 0,
+  masked_filter_agg_kernel<<<(unsigned)grid, kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      p, n_pages, tile_pages, static_cast<const int32_t*>(lo0),
-      static_cast<const int32_t*>(hi0), static_cast<const int32_t*>(lo1),
-      static_cast<const int32_t*>(hi1), static_cast<const int32_t*>(ts), nq,
-      static_cast<const uint32_t*>(words), n_words,
-      static_cast<const int32_t*>(local_pages), sums, sums + nq);
+      m, static_cast<const int32_t*>(lo0), static_cast<const int32_t*>(hi0),
+      static_cast<const int32_t*>(lo1), static_cast<const int32_t*>(hi1),
+      static_cast<const int32_t*>(ts), nq, sums, sums + nq);
   return (int)cudaGetLastError();
+}
+
+// K3's work items and grid for S shards of n_pages pages, into
+// shape[0] and shape[1] (reported by chip_smoke.py).
+extern "C" int masked_filter_agg_shape(int device, int n_shards,
+                                       int n_pages, long long* shape) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
+  return (int)masked_grid(n_shards, n_pages, shape, shape + 1);
 }
 
 // K1: the stream path on one shard whose pages are all real;

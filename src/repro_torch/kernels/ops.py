@@ -6,9 +6,10 @@ Port of ``repro.kernels.ops``: ``scan_table`` /
 layout -- columns stacked in one (n_pages, page_size, n_attrs) array
 -- to the kernels' column-plane interface.  The planes are views of
 ``table.data``, which the port stores attribute-major, so each plane
-is one unit-stride run; nothing is copied.  The launch's tile is
-``batched_filter_agg.tile_pages`` unless ``block_pages`` is given;
-results do not depend on it.
+is one unit-stride run; nothing is copied.  The K1, K2 and K4
+adapters take an optional ``block_pages`` tile; results do not depend
+on it.  The page-count operand of K3 and K4 is made once per table
+state (``Table.local_pages_tensor``), not on every launch.
 
 ``scan_shards_batched`` (K4) and ``scan_shards_batched_masked`` (K3)
 adapt a ``ShardedTable`` -- already the stacked (S, max_pages,
@@ -146,9 +147,7 @@ def scan_table_batched(
     )
 
 
-def scan_table_batched_masked(
-    table, attrs, los, his, tss, agg_attr, words, block_pages=None
-):
+def scan_table_batched_masked(table, attrs, los, his, tss, agg_attr, words):
     """Masked-stitch table suffix over a plain Table via K3: scans
     exactly the UNCOVERED pages of the coverage bitmap whose packed
     words are ``words`` ((1, W) int32, ``PageCoverage.packed_words``).
@@ -172,8 +171,7 @@ def scan_table_batched_masked(
         his1,
         torch.as_tensor(tss, dtype=torch.int32, device=dev),
         torch.as_tensor(words, dtype=torch.int32, device=dev),
-        torch.tensor([table.n_pages], dtype=torch.int32, device=dev),
-        block_pages=block_pages,
+        table.local_pages_tensor(),
     )
 
 
@@ -212,9 +210,7 @@ def scan_shards_batched(
     )
 
 
-def scan_shards_batched_masked(
-    st, attrs, los, his, tss, agg_attr, words, block_pages=None
-):
+def scan_shards_batched_masked(st, attrs, los, his, tss, agg_attr, words):
     """Masked-stitch table half over every shard of a ``ShardedTable``
     in one K3 launch: exactly the UNCOVERED pages of each shard's
     packed coverage words ``words`` (S, W) int32
@@ -239,5 +235,4 @@ def scan_shards_batched_masked(
         torch.as_tensor(tss, dtype=torch.int32, device=dev),
         torch.as_tensor(words, dtype=torch.int32, device=dev),
         st.local_pages_tensor(),
-        block_pages=block_pages,
     )

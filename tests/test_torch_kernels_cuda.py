@@ -85,9 +85,40 @@ def test_cuda_k2_matches_plain(cuda, start_page):
     assert (int(s), int(c)) == (int(ps), int(pc))
 
 
-def _masked_inputs(seed, S, n_pages=333, psz=32, cover="scattered"):
+COVERS = ("empty", "prefix", "scattered", "runs", "alternate",
+          "one_per_word", "full")
+
+
+def _coverage(rng, cover, S, n_pages):
+    """(S, n_pages) bool built flags: none, a prefix, random pages, hot
+    windows (runs of 40 built pages every 64, as phase 5's windows are
+    runs), every other page, one open page per 32-page word, all."""
+    page = np.arange(n_pages)[None, :].repeat(S, 0)
+    built = {"empty": page < 0,
+             "prefix": page < 100,
+             "scattered": rng.random((S, n_pages)) < 0.6,
+             "runs": (page + 17 * np.arange(S)[:, None]) % 64 < 40,
+             "alternate": page % 2 == 1,
+             "one_per_word": page % 32 != 7,
+             "full": page >= 0}[cover]
+    if S > 1 and cover != "empty":
+        built[1] = True  # a shard whose every page is covered
+    return built
+
+
+def _pack(built, W):
+    """(S, W) int32 packed little-endian coverage words (0-bits past the
+    flags)."""
+    S, n = built.shape
+    bits = np.pad(built, ((0, 0), (0, W * 32 - n))).astype(np.uint32)
+    return torch.from_numpy((bits.reshape(S, W, 32) << np.arange(
+        32, dtype=np.uint32)).sum(axis=2, dtype=np.uint32).view(np.int32))
+
+
+def _masked_inputs(seed, S, n_pages=333, psz=32, cover="scattered", B=9):
     """Stacked (S, n_pages, psz) planes with ragged real page counts
-    (padding pages invisible), queries, and packed coverage words."""
+    (padding pages invisible), B queries, and packed coverage words
+    (W * 32 > n_pages)."""
     rng = np.random.default_rng(seed)
     data = _attr_major(rng.integers(
         2**30, I32_MAX, size=(S, n_pages, psz, 5)).astype(np.int32))
@@ -98,36 +129,77 @@ def _masked_inputs(seed, S, n_pages=333, psz=32, cover="scattered"):
     local = np.array([n_pages - 37 * s for s in range(S)], np.int32)
     for s in range(S):
         begin[s, local[s]:] = I32_MAX
-    built = {"empty": np.zeros((S, n_pages), bool),
-             "prefix": np.arange(n_pages)[None, :].repeat(S, 0) < 100,
-             "scattered": rng.random((S, n_pages)) < 0.6,
-             "full": np.ones((S, n_pages), bool)}[cover]
-    W = -(-n_pages // 32)
-    bits = np.pad(built, ((0, 0), (0, W * 32 - n_pages))).astype(np.uint32)
-    words = (bits.reshape(S, W, 32) << np.arange(32, dtype=np.uint32)).sum(
-        axis=2, dtype=np.uint32).view(np.int32)
+    words = _pack(_coverage(rng, cover, S, n_pages), -(-n_pages // 32) + 1)
     planes = (data[..., 1], data[..., 3], data[..., 2],
               torch.from_numpy(begin), torch.from_numpy(end))
-    q = _queries(seed, 9, n_pages)[:5]
-    return planes, q, torch.from_numpy(words), torch.from_numpy(local)
+    q = _queries(seed, B, n_pages)[:5]
+    return planes, q, words, torch.from_numpy(local)
 
 
-@pytest.mark.parametrize("cover", ["empty", "prefix", "scattered", "full"])
-@pytest.mark.parametrize("block_pages", [None, 1, 7, 40])
-@pytest.mark.parametrize("S", [1, 4])
-def test_cuda_k3_matches_plain(cuda, S, block_pages, cover):
-    planes, q, words, local = _masked_inputs(S + 3, S, cover=cover)
+def _run_k3(cuda, planes, q, words, local):
+    """K3 on the card against its plain version on the same card."""
+    planes = [x.to(cuda) for x in planes]
+    q = [x.to(cuda) for x in q]
+    words, local = words.to(cuda), local.to(cuda)
     before = bfa.masked_launches
-    s, c = bfa.sharded_batched_filter_agg_masked(
-        *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
-        words.to(cuda), local.to(cuda), block_pages=block_pages)
+    s, c = bfa.sharded_batched_filter_agg_masked(*planes, *q, words, local)
     torch.cuda.synchronize()
     assert bfa.masked_launches == before + 1
     ps, pc = bfa.sharded_batched_filter_agg_masked_plain(*planes, *q, words,
                                                          local)
-    assert torch.equal(s.cpu(), ps) and torch.equal(c.cpu(), pc)
-    if cover == "full":  # every tile returns before loading a row
+    assert torch.equal(s, ps) and torch.equal(c, pc)
+    return s, c
+
+
+@pytest.mark.parametrize("B", [1, 8, 65])
+@pytest.mark.parametrize("cover", COVERS)
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("psz", [3, 8, 32, 256])
+def test_cuda_k3_matches_plain(cuda, psz, S, cover, B):
+    planes, q, words, local = _masked_inputs(psz + 3 * S + B, S, psz=psz,
+                                             cover=cover, B=B)
+    s, c = _run_k3(cuda, planes, q, words, local)
+    if cover == "full":  # every word is all ones: no row is loaded
         assert not c.any() and not s.any()
+    elif cover != "one_per_word":
+        assert c.any()
+
+
+def _offset_plane(x, rows, device):
+    """A copy of ``x`` on ``device`` whose storage starts ``rows`` int32
+    values past an allocation's start (a view, unit stride)."""
+    flat = torch.zeros(x.numel() + rows, dtype=x.dtype, device=device)
+    flat[rows:] = x.reshape(-1).to(device)
+    return flat[rows:].view(x.shape)
+
+
+@pytest.mark.parametrize("offsets", [(1,) * 5, (3,) * 5, (2,) * 5,
+                                     (0, 1, 2, 3, 0)])
+@pytest.mark.parametrize("psz", [3, 8, 256])
+def test_cuda_k3_offset_planes_match_plain(cuda, psz, offsets):
+    """Planes that start mid-word (all at one offset: 16-byte loads
+    from a shifted word grid) and planes that disagree modulo 16 bytes
+    (loaded row by row)."""
+    planes, q, words, local = _masked_inputs(psz * 5 + sum(offsets), 2,
+                                             n_pages=150, psz=psz,
+                                             cover="alternate")
+    planes = [_offset_plane(x, o, cuda) for x, o in zip(planes, offsets)]
+    assert planes[0].data_ptr() % 16 == 4 * offsets[0]
+    _run_k3(cuda, planes, q, words, local)
+
+
+@pytest.mark.parametrize("psz", [1, 3])
+def test_cuda_k3_more_work_items_than_resident_blocks(cuda, psz):
+    """More coverage words than 32 per resident block (at most 8 blocks
+    of 256 threads per SM): every block pulls words more than once."""
+    S, n_pages = 2, 600_000
+    planes, q, _, local = _masked_inputs(psz, S, n_pages=n_pages, psz=psz,
+                                         cover="empty")
+    rng = np.random.default_rng(psz)
+    words = _pack(rng.random((S, n_pages)) < 0.5, -(-n_pages // 32))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert S * n_pages // 32 > 32 * 8 * sms
+    _run_k3(cuda, planes, q, words, local)
 
 
 def test_cuda_k3_prefix_equals_k1(cuda):
@@ -147,9 +219,9 @@ def test_cuda_k3_rejects_short_coverage_words(cuda):
     planes, q, words, local = _masked_inputs(6, 2)
     before = bfa.masked_launches
     with pytest.raises(ValueError, match="W \\* 32 >= n_pages"):
-        bfa.sharded_batched_filter_agg_masked(
+        bfa.sharded_batched_filter_agg_masked(  # 10 words < 333 pages
             *[x.to(cuda) for x in planes], *[x.to(cuda) for x in q],
-            words[:, :-1].to(cuda), local.to(cuda))
+            words[:, :333 // 32].to(cuda), local.to(cuda))
     assert bfa.masked_launches == before
 
 
