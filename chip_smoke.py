@@ -78,6 +78,24 @@ Phases, each asserted (any failure exits non-zero):
    crack-on-scan loop on 4 round-robin shards at reduced depth (K3 at
    S = 4).  K4 launches once per sharded table / hybrid group, K3 once
    per masked group; K1 and K2 never.
+8. The closed loop: ``run_workload`` through the port on fig10's
+   ``hybrid_workload`` (1,000 queries in two phases of 500, 1%
+   selectivity, read bursts of 8) over phase 3's 10M-row table, at the
+   paper's scale (1e-6 simulated ms per tuple touch, so a scan costs
+   ~10 ms, and the FAST frequency of 100 ms).  Each arm is a kernel twin
+   (``use_kernel``) against a plain twin on tables from one seed: (a) 1
+   shard, the predictive tuner at FAST and DIS, on ``read_only`` and
+   ``read_heavy`` (K1); (b) 4 round-robin shards, shard-aware tuning
+   off, equal to (a) field for field (K4); (c) 4 shards, shard-aware
+   (K4, ``hybrid_ps``); (d) phase 7(b)'s skewed table, read-only,
+   shard-aware off and on, the reference's ``benchmarks/shard_tuning.py``
+   with its tuner budgets scaled to the table (K4); (e) 1 shard with
+   crack-on-scan and decay (K3).  Every RunResult field but wall_s and
+   execution_tiers agrees between the twins; each arm's kernel launches
+   its kernel and the plain twin none; in (b) and (c) every fifth
+   statement that is a scan equals a numpy scan of the rows live at its
+   snapshot.  Prints each twin's summary, tiers and wall_s, DIS / FAST
+   for (a) and queries to converge for (d).
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -88,6 +106,7 @@ are missing.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -120,6 +139,17 @@ RUN_PAGES = 512  # phase 4's runs bitmap: every other window of 512 pages
 SKEW_PAGES = (29_295, 3_255, 3_255, 3_255)
 SKEW_BURSTS = 4
 SHARDED_MASKED_BURSTS = 6
+# Phase 8: the closed loop (run_workload) on fig10's hybrid workload.  A
+# 10M-row scan costs ~10 simulated ms at 1e-6 ms per tuple touch (the
+# paper's scale), so FAST (100 ms) fires about one cycle per burst.
+LOOP_TOTAL, LOOP_PHASE_LEN, LOOP_BATCH = 1_000, 500, 8
+LOOP_UNIT_MS = 1e-6
+LOOP_CHECK_EVERY = 5  # (b), (c): every fifth statement against numpy
+# (d): benchmarks/shard_tuning.py's tuner sizes its per-cycle budget
+# (8 pages) and storage (50 MB) for a 48-page table; both scale with
+# the table, so convergence stays a few cycles long as it is there.
+BENCH_SKEW_PAGES, BENCH_CYCLE_PAGES, BENCH_STORAGE = 48, 8, 50e6
+CONVERGED_FRACTION = 0.98  # benchmarks/shard_tuning.py
 
 
 def emit(obj) -> None:
@@ -1170,6 +1200,254 @@ def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
     return k4, out["c"]["k3_launches"]
 
 
+def queries_to_converge(res) -> int:
+    """First query at which the mean built fraction reaches
+    CONVERGED_FRACTION (len(run) when it never does): a copy of the
+    reference's ``benchmarks/shard_tuning.py:queries_to_converge``."""
+    for i, frac in enumerate(res.built_fraction):
+        if frac >= CONVERGED_FRACTION:
+            return i
+    return len(res.built_fraction)
+
+
+def record_snapshots(db):
+    """Wrap ``db``'s statement entry points to log the snapshot
+    timestamp of every statement the runner submits, in order."""
+    log = []
+    batch, single = db.execute_batch, db.execute
+
+    def execute_batch(queries, **kw):
+        log.extend([db.clock_ms_i32()] * len(queries))
+        return batch(queries, **kw)
+
+    def execute(q, **kw):
+        log.append(db.clock_ms_i32())
+        return single(q, **kw)
+
+    db.execute_batch, db.execute = execute_batch, execute
+    return log
+
+
+def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
+             snapshots=False):
+    """One ``run_workload`` of the closed loop on the card; returns the
+    RunResult, the database, the kernel launches of the run (each
+    count set to 0 just before it) and the snapshot log."""
+    from repro_torch.api import (Database, DisabledTuner, ExecOptions,
+                                 PredictiveTuner, RunConfig, TunerConfig,
+                                 TuningOptions, make_dl_tuner, run_workload)
+
+    db = Database({"narrow": table}, time_per_unit_ms=LOOP_UNIT_MS)
+    if tuner == "dis":
+        t = DisabledTuner(db)
+    elif tuner == "predictive":
+        t = make_dl_tuner(db, "predictive")
+    else:  # a TunerConfig's fields
+        t = PredictiveTuner(db, TunerConfig(**tuner))
+    cfg = RunConfig(execution=ExecOptions(read_batch_size=LOOP_BATCH,
+                                          **exec_kw),
+                    tuning=TuningOptions(**tuning_kw),
+                    time_per_unit_ms=LOOP_UNIT_MS)
+    log = record_snapshots(db) if snapshots else None
+    torch.cuda.synchronize()
+    bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
+    res = run_workload(db, t, workload, cfg)
+    launches = dict(K1=bfa.launches, K3=bfa.masked_launches,
+                    K4=bfa.sharded_launches)
+    return res, db, launches, log
+
+
+def result_diffs(a, b):
+    """Fields of two RunResults that differ (all but wall_s and
+    execution_tiers), and the elements of ``results`` and
+    ``latencies_ms`` that differ."""
+    import dataclasses
+
+    fields = [f.name for f in dataclasses.fields(a)
+              if f.name not in ("wall_s", "execution_tiers")
+              and getattr(a, f.name) != getattr(b, f.name)]
+    elements = sum(x != y for name in ("results", "latencies_ms")
+                   for x, y in zip(getattr(a, name), getattr(b, name)))
+    return fields, elements
+
+
+def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
+             tuning_kw, must_launch, numpy_check=False):
+    """One arm of phase 8: a kernel twin (``use_kernel``) and a plain
+    twin, each on its own table from ``make_table``.  Every simulated
+    field must agree, the kernel twin must launch each kernel of
+    ``must_launch`` and the plain twin none; with ``numpy_check`` every
+    LOOP_CHECK_EVERY-th statement of the kernel twin that is a scan is
+    held to a numpy scan of the rows live at its snapshot.  Returns the
+    kernel twin's result, its launches and the arm's peak device
+    memory."""
+    import numpy as np
+
+    # A Database sits in a reference cycle (its planner points back at
+    # it), so the databases of earlier arms and phases stay allocated
+    # until the collector runs: collect them before measuring.
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_arm = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for use_kernel in (True, False):
+        out[use_kernel] = loop_run(
+            torch, bfa, make_table(), workload, tuner,
+            dict(exec_kw, use_kernel=use_kernel), tuning_kw,
+            snapshots=numpy_check and use_kernel)
+    (rk, dbk, lk, log), (rp, dbp, lp, _) = out[True], out[False]
+    fields, elements = result_diffs(rk, rp)
+    for name, twin in (("kernel", rk), ("plain", rp)):
+        emit(dict(phase="loop_summary", arm=tag, twin=name,
+                  summary=twin.summary(), wall_s=twin.wall_s,
+                  execution_tiers=twin.execution_tiers))
+    checked, t_check = 0, time.perf_counter()
+    if numpy_check:
+        items = list(workload)
+        # The final table holds every version; a snapshot of it equals
+        # what a scan saw unless a later write shares its timestamp
+        # (none should: a scan costs several simulated ms).
+        next_write, ts = [], float("inf")
+        for (_, q), t in zip(reversed(items), reversed(log)):
+            next_write.append(ts)
+            if q.kind != "scan":
+                ts = min(ts, t)
+        next_write.reverse()
+        attrs = {a for _, q in items if q.kind == "scan"
+                 for a in q.attrs + (q.agg_attr,)}
+        cols = host_columns(dbk.tables["narrow"], tuple(attrs))
+        # Slots never written (headroom, shard padding) are visible at
+        # no snapshot: drop them once instead of in every check.
+        written = cols["begin"] != np.iinfo(np.int32).max
+        cols = {k: v[written] for k, v in cols.items()}
+        for i in range(0, len(items), LOOP_CHECK_EVERY):
+            q = items[i][1]
+            if q.kind != "scan":
+                continue
+            assert next_write[i] > log[i], (tag, i)
+            assert rk.results[i][:2] == numpy_answer(cols, q, log[i]), (
+                tag, i, q)
+            checked += 1
+        assert checked > 0
+    peak = torch.cuda.max_memory_allocated()
+    emit(dict(phase="loop_arm", arm=tag, differing_fields=fields,
+              differing_elements=elements, statements=len(rk.results),
+              numpy_checks=checked, launches=lk, plain_launches=lp,
+              kernel_wall_s=rk.wall_s, plain_wall_s=rp.wall_s,
+              peak_bytes=peak, seconds=time.perf_counter() - t_arm,
+              check_seconds=time.perf_counter() - t_check))
+    assert not fields and elements == 0, (tag, fields, elements)
+    assert all(lp[k] == 0 for k in lp), (tag, lp)
+    for k in must_launch:
+        assert lk[k] > 0, (tag, k, lk)
+    assert sum(rk.execution_tiers.values()) == len(rk.results) - sum(
+        q.kind != "scan" for _, q in workload)
+    return rk, lk, peak
+
+
+def phase_closed_loop(torch, bfa, initial, profile=False):
+    """Phase 8: ``run_workload`` through the port on the card, on fig10's
+    hybrid workload over phase 3's 10M-row table, each arm a kernel twin
+    against a plain twin: (a) 1 shard, predictive at FAST and DIS; (b) 4
+    round-robin shards, flag off, equal to (a); (c) 4 shards,
+    shard-aware; (d) phase 7(b)'s skewed table, shard-aware off and on
+    (``benchmarks/shard_tuning.py`` at full width); (e) 1 shard with
+    crack-on-scan and decay.  With ``profile``, one more run of each
+    twin of (a)'s read_only predictive arm under torch.profiler.
+    Returns the kernel twins' launches."""
+    from repro_torch.api import (TUNING_FREQ_MS, QueryGen, hybrid_workload)
+
+    t_phase = time.perf_counter()
+    src = initial.tables["narrow"]
+    fast = dict(tuning_interval_ms=TUNING_FREQ_MS["fast"])
+    workloads = {}
+    for mixture in ("read_only", "read_heavy"):
+        gen = QueryGen(initial, selectivity=0.01, seed=17 + LOOP_PHASE_LEN)
+        workloads[mixture] = hybrid_workload(
+            gen, mixture, total=LOOP_TOTAL, phase_len=LOOP_PHASE_LEN)
+    launches, peaks = dict(K1=0, K3=0, K4=0), []
+
+    def arm(tag, *a, **k):
+        res, lk, peak = loop_arm(torch, bfa, tag, *a, **k)
+        for key in launches:
+            launches[key] += lk[key]
+        peaks.append(peak)
+        return res
+
+    # (a) 1 shard: predictive at FAST against DIS, on both mixtures.
+    a = {}
+    for mixture, wl in workloads.items():
+        for tuner, tuning in (("predictive", fast), ("dis", dict(
+                tuning_interval_ms=TUNING_FREQ_MS["dis"]))):
+            a[mixture, tuner] = arm(
+                f"a_{mixture}_{tuner}", lambda: clone_table(src), wl, tuner,
+                dict(num_shards=1), tuning, must_launch=("K1",))
+        dis, fst = a[mixture, "dis"], a[mixture, "predictive"]
+        emit(dict(phase="loop_dis_over_fast", mixture=mixture,
+                  dis_cumulative_ms=dis.cumulative_ms,
+                  fast_cumulative_ms=fst.cumulative_ms,
+                  dis_over_fast=dis.cumulative_ms / fst.cumulative_ms))
+    if profile:  # after the counted runs
+        for name, use_kernel in (("kernel", True), ("plain", False)):
+            table = clone_table(src)
+            profiled(torch, "loop_a_read_only", name, lambda: loop_run(
+                torch, bfa, table, workloads["read_only"], "predictive",
+                dict(num_shards=1, use_kernel=use_kernel), fast))
+            del table
+    wl = workloads["read_heavy"]
+    # (b) 4 round-robin shards, flag off: equal to (a) field for field.
+    b = arm("b_4_shards", lambda: clone_table(src), wl, "predictive",
+            dict(num_shards=4), dict(fast, shard_aware_tuning=False),
+            must_launch=("K4",), numpy_check=True)
+    fields, elements = result_diffs(b, a["read_heavy", "predictive"])
+    emit(dict(phase="loop_b_equals_a", differing_fields=fields,
+              differing_elements=elements))
+    assert not fields and elements == 0, (fields, elements)
+    # (c) 4 round-robin shards, shard-aware.
+    arm("c_4_shards_aware", lambda: clone_table(src), wl, "predictive",
+        dict(num_shards=4), dict(fast, shard_aware_tuning=True),
+        must_launch=("K4",), numpy_check=True)
+    # (d) The skewed 36/4/4/4 layout (read-only: every shard is full),
+    # the benchmark's tuner with its budgets scaled to the table.
+    sdb = skewed_tuner_db(initial, SKEW_PAGES)
+    skewed = sdb.tables["narrow"]
+    scale = sum(SKEW_PAGES) / BENCH_SKEW_PAGES
+    cycle = round(BENCH_CYCLE_PAGES * scale)
+    bench_tuner = dict(storage_budget_bytes=BENCH_STORAGE * scale,
+                       pages_per_cycle=cycle, max_build_pages_per_cycle=cycle,
+                       candidate_min_count=2)
+    gen = QueryGen(sdb, selectivity=0.01, seed=31)
+    swl = hybrid_workload(gen, "read_only", total=LOOP_TOTAL,
+                          phase_len=LOOP_PHASE_LEN, seed=5)
+    conv = {}
+    for aware in (False, True):
+        res = arm(f"d_skewed_aware_{aware}", lambda: clone_table(skewed),
+                  swl, bench_tuner, dict(num_shards=len(SKEW_PAGES)),
+                  dict(fast, shard_aware_tuning=aware), must_launch=("K4",))
+        conv[aware] = queries_to_converge(res)
+    emit(dict(phase="loop_d_convergence", local_pages=list(SKEW_PAGES),
+              pages_per_cycle=cycle, queries_to_converge_round_robin=conv[
+                  False], queries_to_converge_shard_aware=conv[True],
+              speedup=conv[False] / max(conv[True], 1)))
+    del sdb, skewed
+    # (e) 1 shard, crack-on-scan and decay: the masked path (K3).
+    arm("e_crack_decay", lambda: clone_table(src), wl, "predictive",
+        dict(num_shards=1), dict(fast, crack_on_scan=True, index_decay=True),
+        must_launch=("K3",))
+    emit(dict(phase="closed_loop", seconds=time.perf_counter() - t_phase,
+              peak_bytes=max(peaks), launches=launches))
+    emit(dict(phase="scale_closed_loop",
+              reduced=["fig10's write_heavy mixture left out for run time "
+                       "(phase 8 runs read_only and read_heavy)"],
+              note=f"{N_ROWS} rows x 21 attrs, page_size {PAGE_SIZE}: "
+                   f"phase 3's table; {LOOP_TOTAL} queries in phases of "
+                   f"{LOOP_PHASE_LEN}, read bursts of {LOOP_BATCH}; (d) "
+                   f"{'/'.join(map(str, SKEW_PAGES))} pages, "
+                   f"{cycle} pages per cycle"))
+    return launches
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -1220,6 +1498,43 @@ def by_name(kernels):
         tot.items(), key=lambda kv: -kv[1][0])]
 
 
+def profiled(torch, tag, name, fn):
+    """Run ``fn`` under torch.profiler; emit its wall time, the device's
+    busy time and idle share and the largest kernels by device time
+    (the table in build/profile/).  Returns (profiler, busy ms, device
+    kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = ROOT / "build" / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_ms = device_busy_us(prof) / 1e3
+    wall_ms = wall * 1e3
+    assert 0 < busy_ms <= wall_ms, (name, busy_ms, wall_ms)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("aten::")
+               and not getattr(e, "is_user_annotation", False)]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    (out / f"profile_{tag}_{name}.txt").write_text(
+        prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=40))
+    emit(dict(phase="profile", path=tag, twin=name, wall_ms=wall_ms,
+              device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+              kernel_ms_sum=sum(e.self_device_time_total
+                                for e in kernels) / 1e3,
+              top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                   for e in top]))
+    return prof, busy_ms, kernels
+
+
 def profile_bursts(torch, dbk, dbp, tag, make_scans):
     """Device time by kernel name for one burst of each twin (each
     twin's scans from one call of ``make_scans``), and on a line of its
@@ -1227,40 +1542,14 @@ def profile_bursts(torch, dbk, dbp, tag, make_scans):
     ``hybrid_scan.GATHER_RANGE``) beside every gather kernel of the
     burst (crack adoption's page gathers and coverage writes
     included)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.hybrid_scan import GATHER_RANGE
 
-    out = ROOT / "build" / "profile"
-    out.mkdir(parents=True, exist_ok=True)
     for name, db, use_kernel in (("kernel", dbk, True),
                                  ("plain", dbp, False)):
         scans = make_scans()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            db.execute_batch(scans, use_kernel=use_kernel)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy_ms = device_busy_us(prof) / 1e3
-        wall_ms = wall * 1e3
-        assert 0 < busy_ms <= wall_ms, (name, busy_ms, wall_ms)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("aten::")
-                   and not getattr(e, "is_user_annotation", False)]
-        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-        (out / f"profile_{tag}_{name}.txt").write_text(
-            prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40))
-        emit(dict(phase="profile", path=tag, twin=name, wall_ms=wall_ms,
-                  device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                  kernel_ms_sum=sum(e.self_device_time_total
-                                    for e in kernels) / 1e3,
-                  top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                       for e in top]))
+        prof, busy_ms, kernels = profiled(
+            torch, tag, name,
+            lambda: db.execute_batch(scans, use_kernel=use_kernel))
         probes, in_range = range_kernels(prof, GATHER_RANGE)
         half = [(k, us) for k, us in in_range
                 if any(g in k for g in GATHER_KERNELS)]
@@ -1329,17 +1618,19 @@ def main(argv) -> int:
     memory("masked path (phase 5)")
     k4_launches, k3_sharded = phase_sharded_path(torch, bfa, fa, profile,
                                                  record, initial)
-    del initial
     memory("sharded path (phase 7)")
+    loop = phase_closed_loop(torch, bfa, initial, profile)  # own peak
+    del initial
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
-              K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches))
+              K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
+              phase8=loop))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
         dict(name="K1 batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:163",
-             launches=k1_launches,
+             launches=k1_launches + loop["K1"],
              max_abs_err=max(kr[("K1", b)]["max_abs_err"]
                              for b in (1, 8, 32)),
              ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
@@ -1355,7 +1646,7 @@ def main(argv) -> int:
         dict(name="K3 sharded_batched_filter_agg_masked", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
-             launches=k3_launches + k3_sharded,
+             launches=k3_launches + k3_sharded + loop["K3"],
              max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
@@ -1363,7 +1654,8 @@ def main(argv) -> int:
         dict(name="K4 sharded_batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:308",
-             launches=k4_launches, max_abs_err=k4["max_abs_err"],
+             launches=k4_launches + loop["K4"],
+             max_abs_err=k4["max_abs_err"],
              ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=None),

@@ -1,6 +1,6 @@
 """Public facade of the PyTorch port.
 
-    from repro_torch.api import Database, PredictiveTuner, make_tuner_db
+    from repro_torch.api import Database, RunConfig, run_workload
 
 Entry points put their tensors on ``cuda`` unless the caller passes
 ``device="cpu"``; with no card and no device named they raise.
@@ -9,7 +9,26 @@ Entry points put their tensors on ``cuda`` unless the caller passes
 from __future__ import annotations
 
 from repro_torch.bench_db.queries import QueryGen
+from repro_torch.bench_db.runner import (
+    TUNING_FREQ_MS,
+    ExecOptions,
+    FaultOptions,
+    ReplicaOptions,
+    RunConfig,
+    RunResult,
+    ServingOptions,
+    TuningOptions,
+    run_workload,
+)
 from repro_torch.bench_db.schema import TunerDB, make_tuner_db
+from repro_torch.bench_db.workloads import (
+    Workload,
+    affinity_workload,
+    hybrid_workload,
+    segments_workload,
+    shifting_workload,
+)
+from repro_torch.core.baselines import DisabledTuner
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database, ExecStats, Query
 from repro_torch.core.index import (
@@ -24,24 +43,40 @@ from repro_torch.core.table import (
     stack_shards,
     unshard_table,
 )
-from repro_torch.core.tuner import PredictiveTuner, TunerConfig
+from repro_torch.core.tuner import PredictiveTuner, TunerConfig, make_dl_tuner
 
 __all__ = [
+    "TUNING_FREQ_MS",
     "Database",
+    "DisabledTuner",
+    "ExecOptions",
     "ExecStats",
+    "FaultOptions",
     "IndexDescriptor",
     "PageCoverage",
     "PredictiveTuner",
     "Query",
     "QueryGen",
+    "ReplicaOptions",
+    "RunConfig",
+    "RunResult",
+    "ServingOptions",
     "ShardedIndex",
     "ShardedTable",
     "Table",
     "TunerConfig",
     "TunerDB",
+    "TuningOptions",
+    "Workload",
+    "affinity_workload",
     "eligible_global_pages",
+    "hybrid_workload",
+    "make_dl_tuner",
     "make_tuner_db",
+    "run_workload",
+    "segments_workload",
     "shard_table",
+    "shifting_workload",
     "stack_shards",
     "unshard_table",
 ]

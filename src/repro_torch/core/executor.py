@@ -20,10 +20,13 @@ Sharded storage is ported: pass ``num_shards > 1`` (or call
 pre-sharded ``ShardedTable``s, which are adopted as they are.  Results
 and accounting equal the single-shard engine's for any shard count.
 ``vap_build_step(shard=)`` builds one shard's local prefix; the index
-then stitches per shard (``pershard_built``).
+then stitches per shard (``pershard_built``).  With
+``shard_aware_tuning`` set, every scan on sharded storage reports the
+pages it table-scans per shard (``ExecStats.shard_pages``, also in its
+monitor record): the heat signal of the tuner's per-shard quanta.
 
 Not ported yet (they raise ``NotImplementedError``): joins (HIGH-S),
-shard-aware tuning, fault injection and VBP indexes.
+fault injection and VBP indexes.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.engine import ScanEngine
 from repro_torch.core.index import (
+    ShardedIndex,
     advance_build,
     advance_build_shard,
     build_page_list,
@@ -144,13 +148,15 @@ class Database:
         self.crack_on_scan: bool = False
         self.crack_pages_per_scan: int = 8
         self.index_decay: bool = False
-        # Indexes whose shard-local prefixes were built by
-        # shard-targeted quanta (``vap_build_step(shard=)``): their
-        # hybrid scans stitch per shard.
-        self.pershard_built: set = set()
-        # Options of the reference whose slices are not ported yet;
-        # setting one makes the next statement raise.
+        # Shard-aware tuning: scans record per-shard page-access
+        # counters and build quanta may target single shards.
+        # ``pershard_built`` tracks indexes whose shard-local prefixes
+        # were built by shard-targeted quanta (``vap_build_step(
+        # shard=)``): their hybrid scans stitch per shard.
         self.shard_aware_tuning: bool = False
+        self.pershard_built: set = set()
+        # Fault injection is not ported yet; setting an injector makes
+        # the next statement raise.
         self.fault_injector = None
         self._round_robin_cache: Dict[str, bool] = {}
         self._zone_maps: Dict[tuple, tuple] = {}
@@ -176,8 +182,6 @@ class Database:
         return next(iter(self.tables.values())).device
 
     def _check_options(self) -> None:
-        if self.shard_aware_tuning:
-            raise NotImplementedError("shard_aware_tuning is not ported yet")
         if self.fault_injector is not None:
             raise NotImplementedError("fault injection is not ported yet")
 
@@ -385,6 +389,7 @@ class Database:
             agg_sum=agg_sum,
             count=count,
             populate_units=populate,
+            shard_pages=self._shard_pages_of(t, plan),
             tier=self.engine.last_tier or "",
         )
 
@@ -430,6 +435,32 @@ class Database:
             return 0.0
         self._cover_pages(bi, t, take, eligible)
         return float(take.size * t.page_size)
+
+    def _shard_pages_of(self, t, plan) -> Tuple[int, ...]:
+        """Per-shard pages the planned access path table-scans -- the
+        monitor's shard-heat signal (advisory: it sizes build quanta,
+        never results or accounting, so this host-side form ignores the
+        transient rho_m part of the stitch)."""
+        if not (self.shard_aware_tuning and isinstance(t, ShardedTable)):
+            return ()
+        psz = t.page_size
+        lused = [(r + psz - 1) // psz for r in t.local_rows]
+        if plan.path == "table":
+            return tuple(lused)
+        if plan.path == "hybrid_masked" and plan.pinned_coverage is not None:
+            built, S = plan.pinned_coverage.built_host, t.n_shards
+            return tuple(
+                int(u - built[s + S * np.arange(u)].sum())
+                for s, u in enumerate(lused)
+            )
+        state = plan.index_state
+        if plan.path in ("hybrid", "hybrid_ps") and isinstance(
+            state, ShardedIndex
+        ):
+            return tuple(
+                max(u - b, 0) for u, b in zip(lused, state.shard_built)
+            )
+        return (0,) * t.n_shards  # pure index scan
 
     @staticmethod
     def _cover_pages(bi: BuiltIndex, t, take, eligible) -> None:
@@ -568,6 +599,7 @@ class Database:
                 agg_sum=agg_sum,
                 count=count,
                 populate_units=populate,
+                shard_pages=self._shard_pages_of(t, plan_q),
                 tier=tier,
             )
             self.clock_ms += stats.latency_ms

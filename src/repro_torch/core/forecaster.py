@@ -1,7 +1,8 @@
 """Holt-Winters index-utility forecaster (paper Section IV-C).
 
 Port of ``repro.core.forecaster`` (``HWState``, ``init_state``,
-``update``, ``forecast`` and the batched forms), in float32 on the
+``update``, ``forecast``, the batched forms and
+``ShardHeatForecaster``), in float32 on the
 database's device.  The multiplicative-seasonality equations:
 
     forecast:  y_hat(t+h|t) = (l_t + h * b_t) * s_{t - m + h_m}
@@ -33,13 +34,15 @@ tests/test_torch_forecaster.py builds such sums in ``update`` and
 taken in float32, as in the reference, where alpha is a traced
 float32.  A batched state carries a leading batch axis on every
 field; ``update_batch`` / ``forecast_batch`` are the reference's
-vmapped forms.
+vmapped forms, and ``ShardHeatForecaster`` one batched state over a
+table's shards.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 EPS = 1e-6
@@ -137,3 +140,40 @@ def update_batch(state: HWState, ys, alpha=0.5, beta=0.3,
 def forecast_batch(state: HWState, h=1):
     """``forecast`` over a batched state."""
     return forecast(state, h)
+
+
+class ShardHeatForecaster:
+    """Per-shard scan-cost forecaster (shard-aware tuning).
+
+    One batched Holt-Winters state over a table's shards, on
+    ``device``, observed once per tuning cycle with the monitor's
+    per-shard page-access counters and queried for next-cycle heat, so
+    the tuner can route build quanta to the shards whose scans will
+    cost the most.
+    """
+
+    def __init__(
+        self,
+        n_shards: int,
+        season_len: int = 8,
+        alpha: float = 0.5,
+        beta: float = 0.3,
+        gamma: float = 0.4,
+        device="cpu",
+    ):
+        self.n_shards = n_shards
+        self.params = (alpha, beta, gamma)
+        self.state = init_state(season_len, batch=n_shards, device=device)
+
+    def observe(self, heat) -> None:
+        """Consume one cycle's per-shard pages-scanned vector."""
+        y = np.asarray(heat, np.float32)[: self.n_shards]
+        y = torch.from_numpy(y.copy()).to(self.state.level.device)
+        self.state = update_batch(self.state, y, *self.params)
+
+    def predict(self, h: int = 1) -> np.ndarray:
+        """Next-cycle per-shard heat forecast (non-negative floats);
+        all ones before the first observation."""
+        if int(self.state.t[0]) == 0:
+            return np.ones(self.n_shards)
+        return forecast_batch(self.state, h).cpu().numpy().astype(np.float64)

@@ -1,10 +1,7 @@
 """Predictive index tuner -- Algorithm 1 of the paper.
 
-Port of ``repro.core.tuner`` on plain and sharded storage (on sharded
-tables the cycle budget round-robins across shards in global page
-order, as in the reference without shard-aware tuning).  Every tuning
-cycle
-runs the observe-react-learn template:
+Port of ``repro.core.tuner`` on plain and sharded storage.  Every
+tuning cycle runs the observe-react-learn template:
 
   Stage I   workload classification (CART decision tree)
   Stage II  candidate enumeration, what-if utility, 0-1 knapsack under
@@ -23,8 +20,14 @@ explicit hot-range-first page list -- the monitor window's predicate
 ranges on the leading key attribute, mapped to pages through the zone
 map, hottest pages first -- and a decay pass clears the coldest
 covered pages' bits while the built footprint exceeds the storage
-budget.  Shard-aware scheduling (per-shard quanta sized by forecast
-shard heat) is not ported yet and raises.
+budget.
+
+Shard-aware scheduling (``Database.shard_aware_tuning``): on sharded
+storage each building index's cycle slice is split into per-shard
+quanta sized by forecast utility (predicted per-shard scan heat x
+unbuilt pages, ``cost_model.shard_build_utility``), so cold or
+complete shards stop absorbing budget.  Without it the slice
+round-robins across shards in global page order.
 """
 
 from __future__ import annotations
@@ -50,13 +53,14 @@ from repro_torch.core.classifier import (
     default_classifier,
 )
 from repro_torch.core.cost_model import IndexDescriptor
-from repro_torch.core.executor import Database
+from repro_torch.core.executor import Database, ExecStats, Query
 from repro_torch.core.index import (
     ShardedIndex,
     build_pages_remaining,
     eligible_global_pages,
     shard_remaining_pages,
 )
+from repro_torch.core.table import ShardedTable
 
 
 @dataclass
@@ -125,8 +129,14 @@ class PredictiveTuner:
         self.models: Dict[str, hw.HWState] = {}  # per-index forecaster
         self.descs: Dict[str, IndexDescriptor] = {}  # every desc ever seen
         self.forecasts: Dict[str, float] = {}  # U from last Stage III
+        # per-(table, n_shards) heat forecaster (shard-aware tuning)
+        self.shard_heat: Dict[Tuple[str, int], hw.ShardHeatForecaster] = {}
         self.last_label: int = UNKNOWN
         self.cycles: int = 0
+
+    # ---- immediate hook: predictive DL does no in-query work ----------
+    def on_query(self, q: Query, stats: ExecStats) -> float:
+        return 0.0
 
     def tuning_cycle(self, idle: bool = False) -> float:
         """One serialized cycle: decide, then apply every build
@@ -141,9 +151,10 @@ class PredictiveTuner:
         """The decision stages of Algorithm 1, with the cycle's build
         work returned as ``BuildQuantum`` records."""
         db, cfg = self.db, self.cfg
-        if getattr(db, "shard_aware_tuning", False):
-            raise NotImplementedError("shard_aware_tuning is not ported yet")
         db.monitor.prune(db.clock_ms)
+        shard_aware = bool(getattr(db, "shard_aware_tuning", False))
+        if shard_aware:
+            self._observe_shard_heat()
 
         # Stage I: workload classification
         feats, n = db.monitor.snapshot_features()
@@ -246,7 +257,8 @@ class PredictiveTuner:
             self._decay_cold_pages()
 
         # Lightweight build work, bounded per cycle and rebalanced
-        # across building indexes by forecast utility.
+        # across building indexes by forecast utility; shard-aware
+        # tuning splits each index's slice into per-shard quanta.
         quanta: List[BuildQuantum] = []
         util_by_name = dict(zip(names, utilities))
         building = [
@@ -271,6 +283,12 @@ class PredictiveTuner:
             step = int(step)
             if step <= 0:
                 continue
+            t = db.tables[b.desc.table]
+            per_shard = (
+                shard_aware
+                and isinstance(t, ShardedTable)
+                and isinstance(b.vap, ShardedIndex)
+            )
             u = float(util_by_name.get(b.desc.name, 0.0))
             if b.coverage is not None:
                 pl = self._hot_range_pages(b, step)
@@ -283,9 +301,17 @@ class PredictiveTuner:
                     continue
                 # No range signal in the window: a quantum without a
                 # page list builds the lowest uncovered pages.
-            quanta.append(BuildQuantum(b.desc.name, step, utility=u))
+            if per_shard:
+                alloc = self._shard_step_allocation(b, t, step)
+                quanta.extend(
+                    BuildQuantum(b.desc.name, p, shard=s, utility=u)
+                    for s, p in alloc
+                )
+            else:
+                quanta.append(BuildQuantum(b.desc.name, step, utility=u))
 
         # Stage III: index utility forecasting ------------------------
+        # (the per-shard heat models were advanced at cycle start)
         if self.use_forecaster:
             for name in names:
                 st = self.models.get(name)
@@ -298,6 +324,39 @@ class PredictiveTuner:
                 self.forecasts[name] = float(hw.forecast(st, 1))
         self.cycles += 1
         return CyclePlan(quanta=quanta)
+
+    # ---- shard-aware build scheduling ---------------------------------
+    def _observe_shard_heat(self) -> None:
+        """Feed every sharded table's per-shard page-access counters
+        (monitor window) into its heat forecaster: one batched update
+        per table per cycle, on the database's device."""
+        for name, t in self.db.tables.items():
+            if not isinstance(t, ShardedTable):
+                continue
+            key = (name, t.n_shards)
+            fc = self.shard_heat.get(key)
+            if fc is None:
+                fc = hw.ShardHeatForecaster(
+                    t.n_shards,
+                    season_len=self.cfg.season_len,
+                    alpha=self.cfg.alpha,
+                    beta=self.cfg.beta,
+                    gamma=self.cfg.gamma,
+                    device=self.db.device,
+                )
+                self.shard_heat[key] = fc
+            fc.observe(self.db.monitor.shard_page_counts(name, t.n_shards))
+
+    def _shard_step_allocation(self, b, t: ShardedTable, step: int):
+        """Split one index's cycle slice across shards by forecast
+        utility: predicted per-shard heat x pages left to build.
+        Deterministic, and never allocates to complete shards."""
+        fc = self.shard_heat.get((b.desc.table, t.n_shards))
+        heat = fc.predict() if fc is not None else np.ones(t.n_shards)
+        remaining = shard_remaining_pages(b.vap, t)
+        util = cm.shard_build_utility(heat, remaining, t.page_size)
+        alloc = cm.allocate_build_pages(util, remaining, step)
+        return [(s, int(p)) for s, p in enumerate(alloc) if p > 0]
 
     def _build_pages_left(self, b) -> int:
         """Pages this building index still has to cover."""
@@ -372,3 +431,25 @@ class PredictiveTuner:
             cov.clear_pages(covered[order[:n_drop]])
             b.building, b.complete = True, False
             over -= n_drop * page_bytes
+
+
+def make_dl_tuner(
+    db: Database,
+    dl: str,
+    config: TunerConfig | None = None,
+    classifier: Optional[CartClassifier] = None,
+) -> PredictiveTuner:
+    """Figure 6 factory: the three decision logics on identical VAP
+    substrate.  dl in {'predictive', 'retrospective', 'immediate'}."""
+    if dl == "predictive":
+        t = PredictiveTuner(db, config, classifier)
+    elif dl == "retrospective":
+        t = PredictiveTuner(db, config, classifier, use_forecaster=False)
+    elif dl == "immediate":
+        t = PredictiveTuner(
+            db, config, classifier, use_forecaster=False, immediate=True
+        )
+    else:
+        raise ValueError(dl)
+    t.name = dl
+    return t

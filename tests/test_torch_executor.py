@@ -187,11 +187,15 @@ def test_unported_features_raise():
     db.index_decay = True
     assert db.execute_batch([gen.low_s()])[0].count >= 0
     P.PredictiveTuner(db).decide()
+    # Shard-aware tuning is ported: on a plain table it changes nothing
+    # (tests/test_torch_shard_tuning.py).
     db.shard_aware_tuning = True
+    assert db.execute_batch([gen.low_s()])[0].shard_pages == ()
+    P.PredictiveTuner(db).decide()
+    # Fault injection is not.
+    db.fault_injector = object()
     with pytest.raises(NotImplementedError):
         db.execute_batch([gen.low_s()])
-    with pytest.raises(NotImplementedError):
-        P.PredictiveTuner(db).decide()
 
 
 def test_zone_map_matches_reference():

@@ -455,3 +455,51 @@ def test_cuda_k4_rejects_more_shards_than_its_shard_table(cuda):
             *planes, *q, torch.zeros((S, 2), dtype=torch.int32, device=cuda),
             torch.ones(S, dtype=torch.int32, device=cuda))
     assert bfa.sharded_launches == n4
+
+
+@pytest.mark.parametrize("num_shards,aware", [(1, False), (4, True)],
+                         ids=["1-shard", "4-shard-aware"])
+def test_cuda_run_workload_kernel_twin_equals_plain_twin(cuda, num_shards,
+                                                        aware):
+    """A 72-query read_heavy hybrid_workload through ``run_workload`` on
+    the card at the CPU tests' size (3,000 rows, pages of 128): the run
+    with ``use_kernel`` launches K1 (K4 on 4 shards) and equals the run
+    on the plain path in every RunResult field but wall_s and
+    execution_tiers."""
+    import dataclasses
+
+    from repro_torch import api as P
+
+    src = P.make_tuner_db(n_rows=3_000, page_size=128, device=cuda)
+    out = {}
+    for use_kernel in (True, False):
+        tables = {k: t._replace(data=t.data.clone(),
+                                begin_ts=t.begin_ts.clone(),
+                                end_ts=t.end_ts.clone())
+                  for k, t in src.tables.items()}
+        tdb = P.TunerDB(tables=tables, quantiles=src.quantiles,
+                        n_rows=src.n_rows, rng=None)
+        gen = P.QueryGen(tdb, selectivity=0.01, seed=23)
+        wl = P.hybrid_workload(gen, "read_heavy", total=72, phase_len=24,
+                               seed=2)
+        db = P.Database(dict(tdb.tables))
+        cfg = P.RunConfig(
+            execution=P.ExecOptions(read_batch_size=6, num_shards=num_shards,
+                                    use_kernel=use_kernel),
+            tuning=P.TuningOptions(tuning_interval_ms=2.0,
+                                   shard_aware_tuning=aware))
+        before = (bfa.launches, bfa.sharded_launches)
+        out[use_kernel] = P.run_workload(db, P.make_dl_tuner(db, "predictive"),
+                                         wl, cfg)
+        launched = (bfa.launches - before[0],
+                    bfa.sharded_launches - before[1])
+        if use_kernel:
+            assert launched[num_shards > 1] > 0
+            assert out[True].execution_tiers == {"kernel": 67}
+        else:
+            assert launched == (0, 0)
+    for f in dataclasses.fields(P.RunResult):
+        if f.name not in ("wall_s", "execution_tiers"):
+            assert getattr(out[True], f.name) == getattr(out[False], f.name), (
+                f.name)
+    assert out[True].tuner_work_units > 0.0

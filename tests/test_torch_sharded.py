@@ -811,12 +811,14 @@ def test_burst_loop_with_tuning_on_4_shards():
 
 
 def test_shard_aware_tuning_and_faults_still_raise():
+    """Shard-aware tuning is ported (tests/test_torch_shard_tuning.py):
+    a scan on 4 shards reports its per-shard pages and a cycle runs.
+    Fault injection still raises."""
     pdb = P.Database(_port_tables(SRC.tables), num_shards=4)
     pdb.shard_aware_tuning = True
-    with pytest.raises(NotImplementedError):
-        pdb.execute_batch([_port_query(_scan(1, 1000))])
-    with pytest.raises(NotImplementedError):
-        P.PredictiveTuner(pdb).decide()
+    got = pdb.execute_batch([_port_query(_scan(1, 1000))])[0]
+    assert len(got.shard_pages) == 4 and sum(got.shard_pages) > 0
+    P.PredictiveTuner(pdb).decide()
     pdb.shard_aware_tuning = False
     pdb.fault_injector = object()
     with pytest.raises(NotImplementedError):
