@@ -96,6 +96,25 @@ Phases, each asserted (any failure exits non-zero):
    statement that is a scan equals a numpy scan of the rows live at its
    snapshot.  Prints each twin's summary, tiers and wall_s, DIS / FAST
    for (a) and queries to converge for (d).
+9. The paper's baselines through ``run_workload`` on phase 3's table
+   at phase 8's scale, each arm a kernel twin against a plain twin with
+   every fifth scan held to a numpy scan (a join's pair count to a
+   numpy pair count): (a) fig7's ``segments_workload``, the predictive
+   tuner against ``HolisticTuner`` with fig7's budgets scaled to the
+   rows and its tuning interval, client cadence and monitor horizon to
+   one table scan (holistic / predictive cumulative time, the largest
+   scan-segment latency over a table scan, the indexes left); (b)
+   ``OnlineTuner`` (its FULL build cycle's work and wall time; scans
+   its complete FULL index answers alone are held to the index's built
+   pages, the reference's rule), ``AdaptiveTuner`` and ``SmixTuner``
+   (a budget of half an index, so it drops) on phase 8's read_heavy
+   workload; (c) HIGH-S joins
+   (``affinity_workload(template="high_s")``) under the predictive
+   tuner on 1 and 4 round-robin shards, equal field for field, ending
+   with an index on the join attribute 4; (d) ``AdaptiveTuner`` on 4
+   shards (sharded VBP), equal to (b)'s 1-shard run.  K1 (K4 on
+   shards) launches in every kernel twin, none in the plain twins, and
+   the twins' index states are equal.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -150,6 +169,15 @@ LOOP_CHECK_EVERY = 5  # (b), (c): every fifth statement against numpy
 # the table, so convergence stays a few cycles long as it is there.
 BENCH_SKEW_PAGES, BENCH_CYCLE_PAGES, BENCH_STORAGE = 48, 8, 50e6
 CONVERGED_FRACTION = 0.98  # benchmarks/shard_tuning.py
+# Phase 9: the paper's baselines at phase 8's scale.  fig7's benchmark
+# runs a 20,000-row table; its storage and build budgets scale with the
+# rows, its tuning interval, client cadence and monitor horizon with one
+# table scan's simulated latency.  fig7 runs the benchmark's 400
+# statements per segment, the other arms phase 8's 1,000 statements.
+FIG7_ROWS = 20_000
+FIG7_SEG_LEN = 400
+JOIN_NOISE = 0.2  # (c): LOW-S scans that batch, between the joins
+SMIX_BUDGET = 12.0 * N_ROWS / 2  # half a full index: forces LRU drops
 
 
 def emit(obj) -> None:
@@ -669,14 +697,35 @@ def host_columns(table, attrs):
     return out
 
 
-def numpy_answer(cols, q, ts):
-    import numpy as np
-
+def numpy_mask(cols, q, ts, rows=None):
+    """Rows of host columns that scan ``q`` returns at snapshot ``ts``
+    (among ``rows``, a bool mask, when given)."""
     mask = (cols["begin"] <= ts) & (ts < cols["end"])
+    if rows is not None:
+        mask &= rows
     for a, lo, hi in zip(q.attrs, q.los, q.his):
         mask &= (cols[a] >= lo) & (cols[a] <= hi)
+    return mask
+
+
+def numpy_answer(cols, q, ts, rows=None):
+    import numpy as np
+
+    mask = numpy_mask(cols, q, ts, rows)
     s = int(cols[q.agg_attr][mask].astype(np.int64).sum())
     return (s + 2**31) % 2**32 - 2**31, int(mask.sum())
+
+
+def numpy_pairs(cols, q, ts, inner, rows=None):
+    """Brute-force pair count of a HIGH-S join (a self-join of the table
+    the columns come from): the scan's rows (among ``rows``) against
+    ``inner``, the rows live at ``ts`` counted per join value
+    (``np.bincount``), on ``join_attr == join_inner_attr``."""
+    import numpy as np
+
+    outer = cols[q.join_attr][numpy_mask(cols, q, ts, rows)]
+    per_value = np.bincount(outer, minlength=inner.size)[:inner.size]
+    return int(np.dot(per_value.astype(np.int64), inner))
 
 
 def clone_table(t):
@@ -1210,35 +1259,172 @@ def queries_to_converge(res) -> int:
     return len(res.built_fraction)
 
 
-def record_snapshots(db):
-    """Wrap ``db``'s statement entry points to log the snapshot
-    timestamp of every statement the runner submits, in order."""
-    log = []
-    batch, single = db.execute_batch, db.execute
+def shard_slots(table) -> int:
+    """Slots per shard of a ``Table`` (one shard) or ``ShardedTable``."""
+    return table.begin_ts.shape[-2] * table.begin_ts.shape[-1]
+
+
+def slot_prefix(table, slot, counts):
+    """Which flat slots of ``table`` lie in the first ``counts[s]``
+    slots of their shard ``s``."""
+    import numpy as np
+
+    per_shard = shard_slots(table)
+    return slot % per_shard < np.asarray(counts)[slot // per_shard]
+
+
+def row_counts(table):
+    """Each shard's append watermark (a ``Table``: its row count)."""
+    return tuple(getattr(table, "local_rows", (table.n_rows,)))
+
+
+def numpy_oracle(db, workload, shared_ts):
+    """Wrap ``db``'s statement entry points so that every
+    LOOP_CHECK_EVERY-th statement that is a scan gets the answer a numpy
+    scan gives at its snapshot: (agg_sum, count), or (agg_sum, pairs)
+    for a join.  A written slot never changes its values (an UPDATE
+    ends the old version and appends the new one), so the final table
+    holds what a scan saw, unless a later write shares the scan's
+    timestamp.  With ``shared_ts`` such a scan is answered from the
+    final table as it stood before that write: the first write after it
+    records each shard's append watermark and the slots already ended
+    at that timestamp (one compare on the card); later slots are
+    invisible and later ends undone.  Without it, no such write may
+    occur.  A scan that a complete FULL index answers alone
+    (``pure_vap``, planned at the scan) is held to the rows of the
+    index's built pages: the reference's rule leaves the watermark
+    page and rows appended since the build out (ROADMAP.md queue 3
+    item 2).  Returns ``finish``: called after the run, it gives
+    (answers by statement position, scans answered before a shared
+    write, scans held to built pages)."""
+    import numpy as np
+
+    items = [q for _, q in workload]
+    attrs = {a for q in items if q.kind == "scan"
+             for a in q.attrs + (q.agg_attr,)}
+    attrs |= {a for q in items if q.join_table is not None
+              for a in (q.join_attr, q.join_inner_attr)}
+    assert all(q.join_table in (None, "narrow") for q in items)
+    log, epochs, pending, before, built = [], [], [], {}, {}
+    writes, plans = [0], {}
+    batch, single, plan_scan = (db.execute_batch, db.execute,
+                                db.planner.plan_scan)
+
+    def planned(q):
+        plan = plan_scan(q)
+        vap = plan.pinned_state
+        if plan.path == "pure_vap":  # only a complete FULL index
+            plans[id(q)] = tuple(
+                b * db.tables[q.table].page_size for b in getattr(
+                    vap, "shard_built", (vap.built_pages,)))
+        else:
+            plans.pop(id(q), None)
+        return plan
+
+    def submit(queries):
+        ts = db.clock_ms_i32()
+        if any(q.kind != "scan" for q in queries):
+            due = [i for i in pending if log[i] == ts and i not in before]
+            if due:
+                assert shared_ts, ("a write shares scan timestamps", due)
+                t = db.tables["narrow"]
+                ended = (t.end_ts.reshape(-1) == ts).nonzero()
+                ended = ended.reshape(-1).cpu().numpy()
+                for i in due:
+                    before[i] = (row_counts(t), ended, shard_slots(t))
+        for q in queries:
+            i = len(log)
+            log.append(ts)
+            epochs.append(writes[0])
+            if q.kind == "scan" and i % LOOP_CHECK_EVERY == 0:
+                pending.append(i)
+        writes[0] += sum(q.kind != "scan" for q in queries)
+
+    def done(first):
+        for i in range(first, len(log)):
+            if i in pending and id(items[i]) in plans:
+                built[i] = plans[id(items[i])]
 
     def execute_batch(queries, **kw):
-        log.extend([db.clock_ms_i32()] * len(queries))
-        return batch(queries, **kw)
+        first = len(log)
+        submit(queries)
+        out = batch(queries, **kw)
+        done(first)
+        return out
 
     def execute(q, **kw):
-        log.append(db.clock_ms_i32())
-        return single(q, **kw)
+        first = len(log)
+        submit([q])
+        out = single(q, **kw)
+        done(first)
+        return out
+
+    def finish():
+        assert len(log) == len(items)
+        t = db.tables["narrow"]
+        cols = host_columns(t, tuple(attrs))
+        cols["slot"] = np.arange(cols["begin"].size)
+        # Slots never written (headroom, shard padding) are visible at
+        # no snapshot: drop them once instead of in every check.
+        written = cols["begin"] != np.iinfo(np.int32).max
+        cols = {k: v[written] for k, v in cols.items()}
+        answers, inner, prefixes = {}, {}, {}
+
+        def prefix(counts):  # one slot mask per watermark set
+            if counts not in prefixes:
+                prefixes[counts] = slot_prefix(t, cols["slot"], counts)
+            return prefixes[counts]
+
+        for i in pending:
+            q, ts = items[i], log[i]
+            c = cols
+            if i in before:
+                counts, ended, per_shard = before[i]
+                # Slot ids as the final table numbers them (a grown
+                # table has more slots per shard).
+                ended = ended // per_shard * shard_slots(t) + ended % per_shard
+                c = dict(cols)
+                c["begin"] = np.where(prefix(counts), cols["begin"],
+                                      np.iinfo(np.int32).max)
+                later = (cols["end"] == ts) & ~np.isin(cols["slot"], ended)
+                c["end"] = np.where(later, np.iinfo(np.int32).max,
+                                    cols["end"])
+            rows = prefix(built[i]) if i in built else None
+            want = numpy_answer(c, q, ts, rows)
+            if q.join_table is not None:
+                # The live rows change only with a write.
+                key = (epochs[i], q.join_inner_attr)
+                if key not in inner:
+                    live = (c["begin"] <= ts) & (ts < c["end"])
+                    inner[key] = np.bincount(
+                        c[q.join_inner_attr][live]).astype(np.int64)
+                want = (want[0], numpy_pairs(c, q, ts, inner[key], rows))
+            answers[i] = want
+        return answers, len(before), len(built)
 
     db.execute_batch, db.execute = execute_batch, execute
-    return log
+    db.planner.plan_scan = planned
+    return finish
 
 
 def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
-             snapshots=False):
+             oracle=False, shared_ts=False, db_kw=None, serving_kw=None):
     """One ``run_workload`` of the closed loop on the card; returns the
     RunResult, the database, the kernel launches of the run (each
-    count set to 0 just before it) and the snapshot log."""
+    count set to 0 just before it) and, with ``oracle``, the
+    ``finish`` of a ``numpy_oracle`` (``shared_ts`` passed on), else
+    None.  ``tuner`` is "dis", "predictive", a TunerConfig's fields or
+    a callable that makes the tuner from the database."""
     from repro_torch.api import (Database, DisabledTuner, ExecOptions,
-                                 PredictiveTuner, RunConfig, TunerConfig,
-                                 TuningOptions, make_dl_tuner, run_workload)
+                                 PredictiveTuner, RunConfig, ServingOptions,
+                                 TunerConfig, TuningOptions, make_dl_tuner,
+                                 run_workload)
 
-    db = Database({"narrow": table}, time_per_unit_ms=LOOP_UNIT_MS)
-    if tuner == "dis":
+    db = Database({"narrow": table}, time_per_unit_ms=LOOP_UNIT_MS,
+                  **(db_kw or {}))
+    if callable(tuner):
+        t = tuner(db)
+    elif tuner == "dis":
         t = DisabledTuner(db)
     elif tuner == "predictive":
         t = make_dl_tuner(db, "predictive")
@@ -1247,14 +1433,15 @@ def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
     cfg = RunConfig(execution=ExecOptions(read_batch_size=LOOP_BATCH,
                                           **exec_kw),
                     tuning=TuningOptions(**tuning_kw),
+                    serving=ServingOptions(**(serving_kw or {})),
                     time_per_unit_ms=LOOP_UNIT_MS)
-    log = record_snapshots(db) if snapshots else None
+    finish = numpy_oracle(db, workload, shared_ts) if oracle else None
     torch.cuda.synchronize()
     bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
     res = run_workload(db, t, workload, cfg)
     launches = dict(K1=bfa.launches, K3=bfa.masked_launches,
                     K4=bfa.sharded_launches)
-    return res, db, launches, log
+    return res, db, launches, finish
 
 
 def result_diffs(a, b):
@@ -1272,15 +1459,20 @@ def result_diffs(a, b):
 
 
 def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
-             tuning_kw, must_launch, numpy_check=False):
-    """One arm of phase 8: a kernel twin (``use_kernel``) and a plain
-    twin, each on its own table from ``make_table``.  Every simulated
-    field must agree, the kernel twin must launch each kernel of
-    ``must_launch`` and the plain twin none; with ``numpy_check`` every
-    LOOP_CHECK_EVERY-th statement of the kernel twin that is a scan is
-    held to a numpy scan of the rows live at its snapshot.  Returns the
-    kernel twin's result, its launches and the arm's peak device
-    memory."""
+             tuning_kw, must_launch, numpy_check=False, shared_ts=False,
+             db_kw=None, serving_kw=None, after=None):
+    """One arm of phases 8 and 9: a kernel twin (``use_kernel``) and a
+    plain twin, each on its own table from ``make_table``.  Every
+    simulated field must agree, the kernel twin must launch each kernel
+    of ``must_launch`` and the plain twin none; with ``numpy_check``
+    every LOOP_CHECK_EVERY-th statement of the kernel twin that is a
+    scan is held to a numpy scan of the rows live at its snapshot (a
+    join's pair count to a numpy pair count; ``numpy_oracle``, which
+    ``shared_ts`` lets answer scans that a later write shares a
+    timestamp with).  ``after(kernel db, plain
+    db)`` checks the twins' end states and returns fields for the arm's
+    line.  Returns the kernel twin's result, its launches, the arm's
+    peak device memory and ``after``'s fields."""
     import numpy as np
 
     # A Database sits in a reference cycle (its planner points back at
@@ -1295,55 +1487,42 @@ def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
         out[use_kernel] = loop_run(
             torch, bfa, make_table(), workload, tuner,
             dict(exec_kw, use_kernel=use_kernel), tuning_kw,
-            snapshots=numpy_check and use_kernel)
-    (rk, dbk, lk, log), (rp, dbp, lp, _) = out[True], out[False]
+            oracle=numpy_check and use_kernel, shared_ts=shared_ts,
+            db_kw=db_kw, serving_kw=serving_kw)
+    (rk, dbk, lk, finish), (rp, dbp, lp, _) = out[True], out[False]
     fields, elements = result_diffs(rk, rp)
+    extra = after(dbk, dbp) if after is not None else {}
     for name, twin in (("kernel", rk), ("plain", rp)):
         emit(dict(phase="loop_summary", arm=tag, twin=name,
                   summary=twin.summary(), wall_s=twin.wall_s,
                   execution_tiers=twin.execution_tiers))
-    checked, t_check = 0, time.perf_counter()
+    checked, joins_checked, shared, built = 0, 0, 0, 0
+    t_check = time.perf_counter()
     if numpy_check:
-        items = list(workload)
-        # The final table holds every version; a snapshot of it equals
-        # what a scan saw unless a later write shares its timestamp
-        # (none should: a scan costs several simulated ms).
-        next_write, ts = [], float("inf")
-        for (_, q), t in zip(reversed(items), reversed(log)):
-            next_write.append(ts)
-            if q.kind != "scan":
-                ts = min(ts, t)
-        next_write.reverse()
-        attrs = {a for _, q in items if q.kind == "scan"
-                 for a in q.attrs + (q.agg_attr,)}
-        cols = host_columns(dbk.tables["narrow"], tuple(attrs))
-        # Slots never written (headroom, shard padding) are visible at
-        # no snapshot: drop them once instead of in every check.
-        written = cols["begin"] != np.iinfo(np.int32).max
-        cols = {k: v[written] for k, v in cols.items()}
-        for i in range(0, len(items), LOOP_CHECK_EVERY):
-            q = items[i][1]
-            if q.kind != "scan":
-                continue
-            assert next_write[i] > log[i], (tag, i)
-            assert rk.results[i][:2] == numpy_answer(cols, q, log[i]), (
-                tag, i, q)
-            checked += 1
+        answers, shared, built = finish()
+        items = [q for _, q in workload]
+        for i, want in sorted(answers.items()):
+            assert rk.results[i][:2] == want, (tag, i, items[i])
+            joins_checked += items[i].join_table is not None
+        checked = len(answers)
         assert checked > 0
     peak = torch.cuda.max_memory_allocated()
     emit(dict(phase="loop_arm", arm=tag, differing_fields=fields,
               differing_elements=elements, statements=len(rk.results),
-              numpy_checks=checked, launches=lk, plain_launches=lp,
+              numpy_checks=checked, numpy_join_checks=joins_checked,
+              launches=lk, plain_launches=lp,
+              numpy_checks_before_shared_ts_write=shared,
+              numpy_checks_on_built_pages=built,
               kernel_wall_s=rk.wall_s, plain_wall_s=rp.wall_s,
               peak_bytes=peak, seconds=time.perf_counter() - t_arm,
-              check_seconds=time.perf_counter() - t_check))
+              check_seconds=time.perf_counter() - t_check, **extra))
     assert not fields and elements == 0, (tag, fields, elements)
     assert all(lp[k] == 0 for k in lp), (tag, lp)
     for k in must_launch:
         assert lk[k] > 0, (tag, k, lk)
     assert sum(rk.execution_tiers.values()) == len(rk.results) - sum(
         q.kind != "scan" for _, q in workload)
-    return rk, lk, peak
+    return rk, lk, peak, extra
 
 
 def phase_closed_loop(torch, bfa, initial, profile=False):
@@ -1369,7 +1548,7 @@ def phase_closed_loop(torch, bfa, initial, profile=False):
     launches, peaks = dict(K1=0, K3=0, K4=0), []
 
     def arm(tag, *a, **k):
-        res, lk, peak = loop_arm(torch, bfa, tag, *a, **k)
+        res, lk, peak, _ = loop_arm(torch, bfa, tag, *a, **k)
         for key in launches:
             launches[key] += lk[key]
         peaks.append(peak)
@@ -1445,6 +1624,208 @@ def phase_closed_loop(torch, bfa, initial, profile=False):
                    f"{LOOP_PHASE_LEN}, read bursts of {LOOP_BATCH}; (d) "
                    f"{'/'.join(map(str, SKEW_PAGES))} pages, "
                    f"{cycle} pages per cycle"))
+    return launches
+
+
+def same_indexes(torch, dbk, dbp) -> dict:
+    """The twins' catalogs hold the same indexes in the same order, each
+    with the same state: entries (VAP / FULL, or the VBP entries with
+    their intervals, merged coverage and ``in_index``), watermarks and
+    usage clock.  Returns the count and the schemes."""
+    import numpy as np
+
+    assert list(dbk.indexes) == list(dbp.indexes)
+    for name, a in dbk.indexes.items():
+        b = dbp.indexes[name]
+        assert (a.scheme, a.complete, a.building, a.last_used_ms) == (
+            b.scheme, b.complete, b.building, b.last_used_ms), name
+        if a.scheme == "vbp":
+            va, vb = a.vbp, b.vbp
+            assert a.cov_union.ivs == b.cov_union.ivs and va.n_cov == vb.n_cov
+            for f in ("cov_lo_hi", "cov_lo_lo", "cov_hi_hi", "cov_hi_lo"):
+                assert np.array_equal(getattr(va, f), getattr(vb, f)), name
+            assert torch.equal(va.in_index, vb.in_index), name
+            sa, sb = va.index, vb.index
+        else:
+            sa, sb = a.vap, b.vap
+        for x, y in zip(sa[:3], sb[:3]):
+            assert torch.equal(x, y), name
+        assert tuple(sa[3:]) == tuple(sb[3:]), name
+    return dict(indexes_end=len(dbk.indexes),
+                schemes=sorted({b.scheme for b in dbk.indexes.values()}))
+
+
+def phase_baselines(torch, bfa, initial):
+    """Phase 9: the paper's baselines through ``run_workload`` on phase
+    3's 10M-row table at phase 8's scale, each arm a kernel twin
+    against a plain twin with every fifth scan held to numpy: (a) fig7
+    (``segments_workload``, predictive against holistic); (b) the
+    online, adaptive and SMIX tuners on phase 8's read_heavy workload;
+    (c) HIGH-S joins under the predictive tuner on 1 and 4 shards, equal
+    to each other; (d) the adaptive tuner on 4 shards, equal to (b)'s.
+    Returns the kernel twins' launches."""
+    from repro_torch.api import (TUNING_FREQ_MS, AdaptiveTuner, Database,
+                                 HolisticTuner, OnlineTuner, PredictiveTuner,
+                                 QueryGen, SmixTuner, TunerConfig,
+                                 affinity_workload, hybrid_workload,
+                                 segments_workload)
+
+    t_phase = time.perf_counter()
+    src = initial.tables["narrow"]
+    scan_ms = N_ROWS * LOOP_UNIT_MS  # one table scan's simulated latency
+    fast = dict(tuning_interval_ms=TUNING_FREQ_MS["fast"])
+    launches, peaks, seconds = dict(K1=0, K3=0, K4=0), [], {}
+
+    def table():
+        return clone_table(src)
+
+    def same(dbk, dbp):
+        return same_indexes(torch, dbk, dbp)
+
+    def arm(tag, *a, **k):
+        t_arm = time.perf_counter()
+        res, lk, peak, extra = loop_arm(torch, bfa, tag, *a,
+                                        numpy_check=True, shared_ts=True,
+                                        **k)
+        for key in launches:
+            launches[key] += lk[key]
+        peaks.append(peak)
+        seconds[tag] = time.perf_counter() - t_arm
+        return res, extra
+
+    # (a) fig7: predictive against holistic over two scan segments and
+    # an insert segment, budgets scaled to the table.
+    scale = N_ROWS // FIG7_ROWS
+    gen = QueryGen(initial, selectivity=0.01)
+    seg = segments_workload(gen, seg_len=FIG7_SEG_LEN)
+    makers = {
+        "predictive": lambda db: PredictiveTuner(db, TunerConfig(
+            storage_budget_bytes=50e6 * scale, pages_per_cycle=16 * scale,
+            max_build_pages_per_cycle=48 * scale, candidate_min_count=3,
+            u_min_write=0.3)),
+        "holistic": lambda db: HolisticTuner(db, TunerConfig(
+            storage_budget_bytes=50e6 * scale)),
+    }
+    fig7 = {}
+    for name, make in makers.items():
+        fig7[name] = arm(
+            f"a_fig7_{name}", table, seg, make, dict(num_shards=1),
+            dict(tuning_interval_ms=12.5 * scan_ms), must_launch=("K1",),
+            db_kw=dict(monitor_max_age_ms=100 * scan_ms),
+            serving_kw=dict(arrival_ms=scan_ms), after=same)
+    spikes = {name: max(lat for lat, ph in zip(r.latencies_ms, r.phases)
+                        if ph < 2) / scan_ms for name, (r, _) in fig7.items()}
+    (pred, pe), (hol, he) = fig7["predictive"], fig7["holistic"]
+    emit(dict(phase="baselines_fig7", seg_len=FIG7_SEG_LEN,
+              predictive_cumulative_ms=pred.cumulative_ms,
+              holistic_cumulative_ms=hol.cumulative_ms,
+              holistic_over_predictive=hol.cumulative_ms / pred.cumulative_ms,
+              max_scan_latency_over_table_scan=spikes,
+              indexes_end=dict(predictive=pe["indexes_end"],
+                               holistic=he["indexes_end"])))
+
+    # (b) online, adaptive and SMIX on phase 8's read_heavy workload.
+    gen = QueryGen(initial, selectivity=0.01, seed=17 + LOOP_PHASE_LEN)
+    wl = hybrid_workload(gen, "read_heavy", total=LOOP_TOTAL,
+                         phase_len=LOOP_PHASE_LEN)
+
+    def online(db):
+        t = OnlineTuner(db)
+        log, cycle = [], t.tuning_cycle
+
+        def tuning_cycle(idle=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = cycle(idle=idle)
+            torch.cuda.synchronize()
+            log.append((work, time.perf_counter() - t0))
+            return work
+
+        t.tuning_cycle, db.cycle_log = tuning_cycle, log
+        return t
+
+    def online_after(dbk, dbp):
+        assert [w for w, _ in dbk.cycle_log] == [w for w, _ in dbp.cycle_log]
+        work, wall = max(dbk.cycle_log)
+        # One cycle indexes the whole table: every full page.
+        assert work >= (N_ROWS // PAGE_SIZE) * PAGE_SIZE, work
+        return dict(same(dbk, dbp), full_build_work_units=work,
+                    full_build_wall_s=wall,
+                    full_build_plain_wall_s=max(dbp.cycle_log)[1])
+
+    def smix(db):
+        t = SmixTuner(db, TunerConfig(storage_budget_bytes=SMIX_BUDGET))
+        drops, drop = [], db.drop_index
+
+        def drop_index(name):
+            drops.append(name)
+            drop(name)
+
+        db.drop_index, db.dropped = drop_index, drops
+        return t
+
+    def smix_after(dbk, dbp):
+        assert dbk.dropped == dbp.dropped and dbk.dropped
+        return dict(same(dbk, dbp), lru_drops=len(dbk.dropped))
+
+    base = {}
+    for name, make, after in (("online", online, online_after),
+                              ("adaptive", AdaptiveTuner, same),
+                              ("smix", smix, smix_after)):
+        base[name] = arm(f"b_{name}", table, wl, make, dict(num_shards=1),
+                         fast, must_launch=("K1",), after=after)
+
+    # (c) HIGH-S joins (plus LOW-S noise scans that batch) under the
+    # predictive tuner: 4 round-robin shards equal 1 shard.
+    gen = QueryGen(initial, selectivity=0.01, seed=29)
+    jwl = affinity_workload(gen, total=LOOP_TOTAL, phase_len=LOOP_PHASE_LEN,
+                            template="high_s", noise_frac=JOIN_NOISE)
+
+    def join_after(dbk, dbp):
+        keys = [list(b.desc.key_attrs) for b in dbk.indexes.values()]
+        assert any(k[0] == 4 for k in keys), keys  # the join attribute
+        return dict(same(dbk, dbp), index_keys=keys)
+
+    # The kernel twin runs first, so the first join of the process (its
+    # 10M-value sort and searchsorted on the card) would be paid by one
+    # twin alone: one throwaway join first.
+    warm = Database({"narrow": table()}, time_per_unit_ms=LOOP_UNIT_MS)
+    warm.execute(next(q for _, q in jwl if q.join_table is not None),
+                 observe=False)
+    torch.cuda.synchronize()
+    del warm
+    joins = {}
+    for S, kernel in ((1, "K1"), (4, "K4")):
+        joins[S] = arm(f"c_joins_{S}_shards", table, jwl, "predictive",
+                       dict(num_shards=S), fast, must_launch=(kernel,),
+                       after=join_after)[0]
+    fields, elements = result_diffs(joins[4], joins[1])
+    emit(dict(phase="baselines_joins_4_equal_1", differing_fields=fields,
+              differing_elements=elements,
+              joins=sum(q.join_table is not None for _, q in jwl)))
+    assert not fields and elements == 0, (fields, elements)
+
+    # (d) the adaptive tuner on 4 round-robin shards (sharded VBP, K4)
+    # equals (b)'s 1-shard run.
+    d, _ = arm("d_adaptive_4_shards", table, wl, AdaptiveTuner,
+               dict(num_shards=4), fast, must_launch=("K4",), after=same)
+    fields, elements = result_diffs(d, base["adaptive"][0])
+    emit(dict(phase="baselines_d_equals_b", differing_fields=fields,
+              differing_elements=elements))
+    assert not fields and elements == 0, (fields, elements)
+
+    emit(dict(phase="baselines", seconds=time.perf_counter() - t_phase,
+              arm_seconds=seconds, peak_bytes=max(peaks), launches=launches,
+              cumulative_ms={name: r.cumulative_ms
+                             for name, (r, _) in base.items()}))
+    emit(dict(phase="scale_baselines",
+              reduced=[],
+              note=f"{N_ROWS} rows x 21 attrs, page_size {PAGE_SIZE}: "
+                   f"phase 3's table; fig7 {FIG7_SEG_LEN} statements per "
+                   f"segment, budgets x{scale} (rows / {FIG7_ROWS}); (b), "
+                   f"(c), (d) {LOOP_TOTAL} statements in phases of "
+                   f"{LOOP_PHASE_LEN}, (c) with {JOIN_NOISE:.0%} LOW-S "
+                   f"noise; read bursts of {LOOP_BATCH}"))
     return launches
 
 
@@ -1620,17 +2001,18 @@ def main(argv) -> int:
                                                  record, initial)
     memory("sharded path (phase 7)")
     loop = phase_closed_loop(torch, bfa, initial, profile)  # own peak
+    base = phase_baselines(torch, bfa, initial)  # own peak
     del initial
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
-              phase8=loop))
+              phase8=loop, phase9=base))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
         dict(name="K1 batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:163",
-             launches=k1_launches + loop["K1"],
+             launches=k1_launches + loop["K1"] + base["K1"],
              max_abs_err=max(kr[("K1", b)]["max_abs_err"]
                              for b in (1, 8, 32)),
              ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
@@ -1646,7 +2028,7 @@ def main(argv) -> int:
         dict(name="K3 sharded_batched_filter_agg_masked", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
-             launches=k3_launches + k3_sharded + loop["K3"],
+             launches=k3_launches + k3_sharded + loop["K3"] + base["K3"],
              max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
@@ -1654,7 +2036,7 @@ def main(argv) -> int:
         dict(name="K4 sharded_batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:308",
-             launches=k4_launches + loop["K4"],
+             launches=k4_launches + loop["K4"] + base["K4"],
              max_abs_err=k4["max_abs_err"],
              ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],

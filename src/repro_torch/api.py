@@ -28,7 +28,13 @@ from repro_torch.bench_db.workloads import (
     segments_workload,
     shifting_workload,
 )
-from repro_torch.core.baselines import DisabledTuner
+from repro_torch.core.baselines import (
+    AdaptiveTuner,
+    DisabledTuner,
+    HolisticTuner,
+    OnlineTuner,
+    SmixTuner,
+)
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.executor import Database, ExecStats, Query
 from repro_torch.core.index import (
@@ -47,12 +53,15 @@ from repro_torch.core.tuner import PredictiveTuner, TunerConfig, make_dl_tuner
 
 __all__ = [
     "TUNING_FREQ_MS",
+    "AdaptiveTuner",
     "Database",
     "DisabledTuner",
     "ExecOptions",
     "ExecStats",
     "FaultOptions",
+    "HolisticTuner",
     "IndexDescriptor",
+    "OnlineTuner",
     "PageCoverage",
     "PredictiveTuner",
     "Query",
@@ -63,6 +72,7 @@ __all__ = [
     "ServingOptions",
     "ShardedIndex",
     "ShardedTable",
+    "SmixTuner",
     "Table",
     "TunerConfig",
     "TunerDB",

@@ -20,8 +20,10 @@ mode, Figure 6) -- tuner *models* survive drops.
 Every field of ``RunResult`` but ``wall_s`` (a host clock around the
 run) and ``execution_tiers`` (which tier served each query) is a
 function of the simulated clock and the query results, so a run is
-deterministic and equals the reference's run field for field.  The
-options whose slices are not ported yet -- replicas, fault schedules,
+deterministic and equals the reference's run field for field, for
+the predictive tuner and for every baseline of ``core.baselines``
+(online, adaptive, SMIX, holistic, DIS).  The options whose slices are
+not ported yet -- replicas, fault schedules,
 the open loop (arrival streams, burst deadlines), the asynchronous
 build lane and the device mesh -- raise ``NotImplementedError`` at the
 top of ``run_workload``, before any state changes.

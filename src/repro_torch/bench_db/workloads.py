@@ -9,8 +9,8 @@ attribute set between phases (Figure 10).
 Port of ``repro.bench_db.workloads``: the same numpy RNG calls in the
 same order on the port's ``QueryGen``, so one seed yields the
 reference's query sequence.  ``affinity_workload`` with the
-``high_s`` template emits joins, which the port's executor does not
-run yet.
+``high_s`` template emits HIGH-S joins, which the executor runs one by
+one (``Database._exec_join``).
 """
 from __future__ import annotations
 

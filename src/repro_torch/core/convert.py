@@ -9,8 +9,11 @@ both sides, plain or sharded alike).  Sharded records arrive as the
 reference's nesting: a ``ShardedTable`` as ``(shards, n_rows)`` with
 one table 4-tuple per shard, a ``ShardedIndex`` as ``(shards,)`` with
 one index 5-tuple per shard; they become the port's stacked
-``ShardedTable`` / ``ShardedIndex``.  The tests use them to start both
-packages from one state.
+``ShardedTable`` / ``ShardedIndex``.  A VBP state (``vbp_from_reference``)
+arrives as its seven fields with the entries in the index form above:
+a plain one becomes a ``VbpState``, a sharded one (the reference's
+tuple of shards) a ``ShardedVbpState`` over the stacked entries.  The
+tests use them to start both packages from one state.
 """
 
 from __future__ import annotations
@@ -20,7 +23,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.index import AdHocIndex, PageCoverage, stack_indexes
+from repro_torch.core.index import (
+    AdHocIndex,
+    PageCoverage,
+    ShardedIndex,
+    ShardedVbpState,
+    VbpState,
+    stack_indexes,
+)
 from repro_torch.core.table import (
     Table,
     attribute_major,
@@ -64,6 +74,19 @@ def index_from_reference(fields, device=None):
                       int(np.asarray(built_pages)))
 
 
+def vbp_from_reference(fields, device=None):
+    """``fields``: (index, cov_lo_hi, cov_lo_lo, cov_hi_hi, cov_hi_lo,
+    n_cov, in_index), ``index`` in ``index_from_reference``'s form; a
+    sharded index gives a ``ShardedVbpState``."""
+    dev = resolve_device(device)
+    index, *cov, n_cov, in_index = fields
+    index = index_from_reference(index, dev)
+    cov = [np.array(c, np.int32) for c in cov]
+    in_index = torch.tensor(np.asarray(in_index, bool), device=dev)
+    cls = ShardedVbpState if isinstance(index, ShardedIndex) else VbpState
+    return cls(index, *cov, int(np.asarray(n_cov)), in_index)
+
+
 def coverage_from_reference(fields, device=None) -> PageCoverage:
     """``fields``: (built, max_entry_page, page_size) of a reference
     ``PageCoverage`` -- its bits, its highest entry page and its page
@@ -79,9 +102,12 @@ def from_reference(tables: Optional[Dict[str, tuple]] = None,
                    indexes: Optional[Dict[str, tuple]] = None,
                    device=None):
     """Convert named reference records; returns (tables, indexes)
-    dicts of port records on ``device``."""
+    dicts of port records on ``device``.  An entry of ``indexes`` with
+    seven fields is a VBP state (``vbp_from_reference``), any other an
+    index."""
     tables = {k: table_from_reference(v, device)
               for k, v in (tables or {}).items()}
-    indexes = {k: index_from_reference(v, device)
+    indexes = {k: (vbp_from_reference if len(v) == 7
+                   else index_from_reference)(v, device)
                for k, v in (indexes or {}).items()}
     return tables, indexes

@@ -40,13 +40,18 @@ Every dispatch records its execution tier in ``last_tier`` (vocabulary
 a plain table, ``vmap-stacked`` for a sharded batch and ``loop`` for
 a sharded single-query scan, as in the reference.  One card has no
 mesh (the reference's ``make_scan_mesh`` returns None below two
-devices), so no dispatch here takes the mesh tiers.  VBP scans are
-not ported yet and raise ``NotImplementedError``.
+devices), so no dispatch here takes the mesh tiers.
+
+A pure VBP scan (``pure_vbp``) runs the pure index scan's operators on
+the VBP index's entries, as ``pure_vap`` does, on every path.  A
+join's outer scan over sharded storage also returns each shard's
+contrib plane (``ShardScanResult.contribs``): the join reads the
+outer rows from them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -78,21 +83,26 @@ from repro_torch.kernels import ops as _kops
 from repro_torch.kernels.ref import i32_sum
 
 
-def _check(table, path: str) -> None:
+PURE_INDEX_PATHS = ("pure_vbp", "pure_vap")
+
+
+def _check(table) -> None:
     if not isinstance(table, (Table, ShardedTable)):
         raise TypeError(f"no scan over {type(table).__name__}")
-    if path == "pure_vbp":
-        raise NotImplementedError("access path 'pure_vbp' is not ported yet")
 
 
 class ShardScanResult(NamedTuple):
-    """Single-query aggregates + accounting over sharded storage, every
-    field 0-d int32 and bit-identical to the single-shard
-    ``ScanResult``'s.  The reference also carries per-shard contrib
-    planes, which only its join path reads; they come with joins."""
+    """Single-query aggregates + accounting over sharded storage: the
+    scalar fields are 0-d int32 and bit-identical to the single-shard
+    ``ScanResult``'s.  ``contribs``, built only for a join's outer scan
+    (None otherwise), holds one (local_pages, page_size) int32 plane
+    per shard -- times each row was returned, 0 or 1 -- stacked as (S,
+    max_pages, page_size) with zero padding pages (shard s's plane is
+    ``contribs[s, :local_pages[s]]``)."""
 
     agg_sum: torch.Tensor
     count: torch.Tensor
+    contribs: Optional[torch.Tensor]
     pages_scanned: torch.Tensor
     entries_probed: torch.Tensor
     start_page: torch.Tensor
@@ -122,7 +132,8 @@ def _stacked_hybrid_prefix(st, six, key_attrs, attrs, los, his, tss,
     """Global-stitch index half of B hybrid scans: the per-query stitch
     point ``max(rho_m, built)`` over global page ids, the index matches
     below it, and each shard's LOCAL start ``ceil((g - s) / S)``
-    clipped at 0.  Returns (HybridPrefixResult, local_starts (S, B))."""
+    clipped at 0.  Returns (HybridPrefixResult, local_starts (S, B),
+    probe, kept entries)."""
     S, B = st.n_shards, los.shape[0]
     pr = _probe_stacked(st, six, key_attrs, attrs, los, his, tss, agg_attr)
     gpage = pr.page * S + pr.seg // B
@@ -132,7 +143,7 @@ def _stacked_hybrid_prefix(st, six, key_attrs, attrs, los, his, tss,
     sid = torch.arange(S, device=st.device)[:, None]
     local = torch.div(start[None, :] - sid + S - 1, S, rounding_mode="floor")
     local = torch.clamp(local, min=0).to(torch.int32)
-    return _prefix_result(st, pr, keep, start), local
+    return _prefix_result(st, pr, keep, start), local, pr, keep
 
 
 def _stacked_hybrid_prefix_ps(st, six, key_attrs, attrs, los, his, tss,
@@ -140,7 +151,8 @@ def _stacked_hybrid_prefix_ps(st, six, key_attrs, attrs, los, his, tss,
     """Per-shard-stitch index half of B hybrid scans: each shard's
     local stitch point ``max(local rho_m, shard built)``.  Returns
     (HybridPrefixResult with start_page = min over shards of ``lstart
-    * S + s``, local_starts (S, B), pages_scanned (B,))."""
+    * S + s``, local_starts (S, B), pages_scanned (B,), probe, kept
+    entries)."""
     S, B = st.n_shards, los.shape[0]
     dev = st.device
     pr = _probe_stacked(st, six, key_attrs, attrs, los, his, tss, agg_attr)
@@ -155,7 +167,7 @@ def _stacked_hybrid_prefix_ps(st, six, key_attrs, attrs, los, his, tss,
     sid = torch.arange(S, device=dev)[:, None]
     gstart = (lstart * S + sid).amin(0)
     return (_prefix_result(st, pr, keep, gstart), lstart.to(torch.int32),
-            pages)
+            pages, pr, keep)
 
 
 def _local_page_ok(st, local_starts):
@@ -170,56 +182,79 @@ def _hybrid_result(pre, sums, cnts, pages):
                            pre.entries_probed, pre.start_page)
 
 
-def _stacked_batched_full(st, attrs, los, his, tss, agg_attr):
+# Each family below returns the BatchScanResult, and with ``planes``
+# also the (S, max_pages, page_size) contrib planes of its one query
+# (``_contrib_planes``): only a join reads them.
+
+def _contrib_planes(st, pr, keep, masks):
+    """Times each stacked row was returned by one query: the kept index
+    entries scattered at their rows (``pr`` None: no index half) plus
+    the table half's row mask (``masks`` None: no table half)."""
+    contribs = torch.zeros(st.begin_ts.numel(), dtype=torch.int32,
+                           device=st.device)
+    if pr is not None:
+        contribs.index_add_(0, pr.rids, keep.to(torch.int32))
+    contribs = contribs.view(st.begin_ts.shape)
+    if masks is not None:
+        contribs += masks[0].to(torch.int32)
+    return contribs
+
+
+def _stacked_batched_full(st, attrs, los, his, tss, agg_attr, planes=False):
     B = los.shape[0]
     dev = st.device
     ok = torch.ones((1, st.n_shards, st.max_pages), dtype=torch.bool,
                     device=dev).expand(B, -1, -1)
-    s, c, _ = _table_side(st, attrs, los, his, tss, agg_attr, ok)
+    s, c, masks = _table_side(st, attrs, los, his, tss, agg_attr, ok)
     z = torch.zeros((B,), dtype=torch.int32, device=dev)
     used = torch.full((B,), _used_pages(st), dtype=torch.int32, device=dev)
-    return BatchScanResult(s, c, used, z, z.clone())
+    r = BatchScanResult(s, c, used, z, z.clone())
+    return (r, _contrib_planes(st, None, None, masks)) if planes else r
 
 
 def _stacked_batched_hybrid(st, six, key_attrs, attrs, los, his, tss,
-                            agg_attr):
-    pre, local = _stacked_hybrid_prefix(st, six, key_attrs, attrs, los,
-                                        his, tss, agg_attr)
-    s, c, _ = _table_side(st, attrs, los, his, tss, agg_attr,
-                          _local_page_ok(st, local))
-    return _hybrid_result(pre, s, c, _pages_after(st, pre.start_page))
+                            agg_attr, planes=False):
+    pre, local, pr, keep = _stacked_hybrid_prefix(
+        st, six, key_attrs, attrs, los, his, tss, agg_attr)
+    s, c, masks = _table_side(st, attrs, los, his, tss, agg_attr,
+                              _local_page_ok(st, local))
+    r = _hybrid_result(pre, s, c, _pages_after(st, pre.start_page))
+    return (r, _contrib_planes(st, pr, keep, masks)) if planes else r
 
 
 def _stacked_batched_hybrid_ps(st, six, key_attrs, attrs, los, his, tss,
-                               agg_attr):
-    pre, local, pages = _stacked_hybrid_prefix_ps(
+                               agg_attr, planes=False):
+    pre, local, pages, pr, keep = _stacked_hybrid_prefix_ps(
         st, six, key_attrs, attrs, los, his, tss, agg_attr)
-    s, c, _ = _table_side(st, attrs, los, his, tss, agg_attr,
-                          _local_page_ok(st, local))
-    return _hybrid_result(pre, s, c, pages)
+    s, c, masks = _table_side(st, attrs, los, his, tss, agg_attr,
+                              _local_page_ok(st, local))
+    r = _hybrid_result(pre, s, c, pages)
+    return (r, _contrib_planes(st, pr, keep, masks)) if planes else r
 
 
 def _stacked_batched_pure_index(st, six, key_attrs, attrs, los, his, tss,
-                                agg_attr):
+                                agg_attr, planes=False):
     B = los.shape[0]
     pr = _probe_stacked(st, six, key_attrs, attrs, los, his, tss, agg_attr)
     start = torch.full((B,), st.n_pages, device=st.device)
     pre = _prefix_result(st, pr, pr.match, start)
     z = torch.zeros((B,), dtype=torch.int32, device=st.device)
-    return BatchScanResult(pre.agg_sum, pre.count, z, pre.entries_probed,
-                           pre.start_page)
+    r = BatchScanResult(pre.agg_sum, pre.count, z, pre.entries_probed,
+                        pre.start_page)
+    return (r, _contrib_planes(st, pr, pr.match, None)) if planes else r
 
 
 def _stacked_masked_prefix(st, six, key_attrs, attrs, los, his, tss,
                            agg_attr, cov):
     """Index half of B masked stitches: matches on covered pages only
     (``cov.mask`` (S, max_pages) over local page ids); ``start_page``
-    reports the bitmap's leading built run."""
+    reports the bitmap's leading built run.  Returns
+    (HybridPrefixResult, probe, kept entries)."""
     B = los.shape[0]
     pr = _probe_stacked(st, six, key_attrs, attrs, los, his, tss, agg_attr)
     keep = pr.match & cov.mask[pr.seg // B, pr.page]
     start = torch.full((B,), cov.prefix_len, device=st.device)
-    return _prefix_result(st, pr, keep, start)
+    return _prefix_result(st, pr, keep, start), pr, keep
 
 
 def _masked_pages(st, cov, B):
@@ -230,47 +265,59 @@ def _masked_pages(st, cov, B):
 
 
 def _stacked_batched_masked(st, six, key_attrs, attrs, los, his, tss,
-                            agg_attr, cov):
+                            agg_attr, cov, planes=False):
     B = los.shape[0]
-    pre = _stacked_masked_prefix(st, six, key_attrs, attrs, los, his, tss,
-                                 agg_attr, cov)
-    s, c, _ = _table_side(st, attrs, los, his, tss, agg_attr,
-                          (~cov.mask)[None].expand(B, -1, -1))
-    return _hybrid_result(pre, s, c, _masked_pages(st, cov, B))
+    pre, pr, keep = _stacked_masked_prefix(st, six, key_attrs, attrs, los,
+                                           his, tss, agg_attr, cov)
+    s, c, masks = _table_side(st, attrs, los, his, tss, agg_attr,
+                              (~cov.mask)[None].expand(B, -1, -1))
+    r = _hybrid_result(pre, s, c, _masked_pages(st, cov, B))
+    return (r, _contrib_planes(st, pr, keep, masks)) if planes else r
 
 
 _STACKED = {
     "hybrid": _stacked_batched_hybrid,
     "hybrid_ps": _stacked_batched_hybrid_ps,
+    "pure_vbp": _stacked_batched_pure_index,
     "pure_vap": _stacked_batched_pure_index,
 }
 
 
 def sharded_batched_scan(st: ShardedTable, path: str, index, key_attrs,
                          attrs, los, his, tss, agg_attr: int,
-                         coverage=None) -> BatchScanResult:
+                         coverage=None, planes: bool = False):
     """B scans of one access path over sharded storage in ONE plain
-    PyTorch dispatch (the stacked fan-out)."""
+    PyTorch dispatch (the stacked fan-out) -> BatchScanResult, or
+    (BatchScanResult, contrib planes) of a single query with
+    ``planes``."""
     dev = st.device
     los, his = _bounds(los, len(attrs), dev), _bounds(his, len(attrs), dev)
     tss = torch.as_tensor(tss, dtype=torch.int32, device=dev)
     if path == "table":
-        return _stacked_batched_full(st, attrs, los, his, tss, agg_attr)
+        return _stacked_batched_full(st, attrs, los, his, tss, agg_attr,
+                                     planes)
     if path == "hybrid_masked":
         return _stacked_batched_masked(st, index, key_attrs, attrs, los,
-                                       his, tss, agg_attr, coverage)
+                                       his, tss, agg_attr, coverage, planes)
     return _STACKED[path](st, index, key_attrs, attrs, los, his, tss,
-                          agg_attr)
+                          agg_attr, planes)
 
 
 def sharded_scan(st: ShardedTable, path: str, index, key_attrs, attrs, los,
-                 his, ts, agg_attr: int, coverage=None) -> ShardScanResult:
+                 his, ts, agg_attr: int, coverage=None,
+                 contribs: bool = False) -> ShardScanResult:
     """One query over sharded storage: the batched form at B = 1 (the
     reference's single-query sharded operators compute the same
-    scalars shard by shard)."""
-    r = sharded_batched_scan(st, path, index, key_attrs, attrs, los, his,
-                             [int(ts)], agg_attr, coverage)
-    return ShardScanResult(*(x[0] for x in r))
+    scalars shard by shard).  With ``contribs`` (a join's outer scan)
+    it also returns the per-shard contrib planes, else None."""
+    args = (st, path, index, key_attrs, attrs, los, his, [int(ts)],
+            agg_attr, coverage)
+    if contribs:
+        r, planes = sharded_batched_scan(*args, planes=True)
+    else:
+        r, planes = sharded_batched_scan(*args), None
+    return ShardScanResult(r.agg_sum[0], r.count[0], planes,
+                           *(x[0] for x in r[2:]))
 
 
 class ScanEngine:
@@ -287,19 +334,22 @@ class ScanEngine:
         self.after_dispatch = None
         self.last_tier = None
 
-    def scan(self, table, plan, attrs: tuple, los, his, ts, agg_attr: int):
-        """Single planned scan -> ScanResult | ShardScanResult."""
+    def scan(self, table, plan, attrs: tuple, los, his, ts, agg_attr: int,
+             contribs: bool = False):
+        """Single planned scan -> ScanResult | ShardScanResult.  A plain
+        table's result always carries its contrib plane; a sharded one
+        carries its per-shard planes only with ``contribs``."""
         path = plan.path
-        _check(table, path)
+        _check(table)
         if isinstance(table, ShardedTable):
             self.last_tier = "loop"  # single query, as in the reference
             return sharded_scan(table, path, plan.index_state,
                                 plan.key_attrs, attrs, los, his, ts,
-                                agg_attr, plan.pinned_coverage)
+                                agg_attr, plan.pinned_coverage, contribs)
         self.last_tier = "single"
         if path == "table":
             return full_table_scan(table, attrs, los, his, ts, agg_attr)
-        if path == "pure_vap":
+        if path in PURE_INDEX_PATHS:
             return pure_index_scan(
                 table, plan.index_state, plan.key_attrs, attrs, los, his,
                 ts, agg_attr,
@@ -337,7 +387,7 @@ class ScanEngine:
         """One batched dispatch for a plan group.  ``coverage`` is the
         plan-pinned ``CoverageView`` of the ``hybrid_masked`` path
         (None for every other path)."""
-        _check(table, path)
+        _check(table)
         # The kernel evaluates at most 2 predicate columns; wider
         # conjunctions take the plain batched forms.
         kernel_ok = use_kernel and 1 <= len(attrs) <= 2
@@ -481,10 +531,10 @@ class ScanEngine:
         pages (per-shard stitch points under ``hybrid_ps``, the global
         stitch point mapped to local pages otherwise)."""
         if pershard:
-            pre, local, pages = _stacked_hybrid_prefix_ps(
+            pre, local, pages, _, _ = _stacked_hybrid_prefix_ps(
                 st, six, key_attrs, attrs, los, his, tss, agg_attr)
         else:
-            pre, local = _stacked_hybrid_prefix(
+            pre, local, _, _ = _stacked_hybrid_prefix(
                 st, six, key_attrs, attrs, los, his, tss, agg_attr)
             pages = _pages_after(st, pre.start_page)
         sums, cnts = _kops.scan_shards_batched(st, attrs, los, his, tss,
@@ -499,8 +549,8 @@ class ScanEngine:
                                            cov) -> BatchScanResult:
         """Masked hybrid scans: the stacked index half plus one K3
         launch over every shard's uncovered pages."""
-        pre = _stacked_masked_prefix(st, six, key_attrs, attrs, los, his,
-                                     tss, agg_attr, cov)
+        pre, _, _ = _stacked_masked_prefix(st, six, key_attrs, attrs, los,
+                                           his, tss, agg_attr, cov)
         sums, cnts = _kops.scan_shards_batched_masked(
             st, attrs, los, his, tss, agg_attr, cov.words)
         return _hybrid_result(pre, sums, cnts,
@@ -512,7 +562,7 @@ class ScanEngine:
                             coverage=None) -> BatchScanResult:
         """One dispatch for a plan group over sharded storage (no mesh
         on one card: the reference's stacked branch)."""
-        if not kernel_ok or path == "pure_vap":
+        if not kernel_ok or path in PURE_INDEX_PATHS:
             self.last_tier = "kernel" if kernel_ok else "vmap-stacked"
             return sharded_batched_scan(st, path, index_state, key_attrs,
                                         attrs, los, his, tss, agg_attr,

@@ -25,8 +25,15 @@ then stitches per shard (``pershard_built``).  With
 pages it table-scans per shard (``ExecStats.shard_pages``, also in its
 monitor record): the heat signal of the tuner's per-shard quanta.
 
-Not ported yet (they raise ``NotImplementedError``): joins (HIGH-S),
-fault injection and VBP indexes.
+Value-based partial (VBP) indexes are ported: ``create_index(...,
+"vbp")`` makes one (a ``ShardedVbpState`` on sharded storage), the
+baseline tuners populate it through ``vbp_populate``, a covered
+sub-domain plans a pure index scan over it, and every INSERT and
+UPDATE drops its coverage claims.  So are HIGH-S equi-joins
+(``_exec_join``): the pair count is taken on the table's device from
+the outer scan's contrib planes and the sorted live inner values.
+
+Not ported yet (it raises ``NotImplementedError``): fault injection.
 """
 
 from __future__ import annotations
@@ -40,9 +47,10 @@ import torch
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
-from repro_torch.core.engine import ScanEngine
+from repro_torch.core.engine import ScanEngine, ShardScanResult
 from repro_torch.core.index import (
     ShardedIndex,
+    ShardedVbpState,
     advance_build,
     advance_build_shard,
     build_page_list,
@@ -50,11 +58,22 @@ from repro_torch.core.index import (
     eligible_global_pages,
     make_index,
     make_sharded_index,
+    make_sharded_vbp,
+    make_vbp,
     shard_full_pages,
+    sharded_vbp_populate_subdomain,
+    vbp_invalidate_coverage,
+    vbp_n_entries,
+    vbp_populate_subdomain,
 )
 from repro_torch.core.layout import LayoutState, scan_width_factor
 from repro_torch.core.monitor import QueryRecord, WorkloadMonitor
-from repro_torch.core.planner import BuiltIndex, QueryPlanner, scan_cost
+from repro_torch.core.planner import (
+    BuiltIndex,
+    IntervalUnion,
+    QueryPlanner,
+    scan_cost,
+)
 from repro_torch.core.table import (
     ShardedTable,
     Table,
@@ -230,14 +249,16 @@ class Database:
         t = self.tables[desc.table]
         if desc.name in self.indexes:
             return self.indexes[desc.name]
-        if scheme not in ("vap", "full"):
-            raise NotImplementedError(f"{scheme} indexes are not ported yet")
         bi = BuiltIndex(desc=desc, scheme=scheme, created_ms=self.clock_ms)
-        if isinstance(t, ShardedTable):
-            bi.vap = make_sharded_index(t)
+        sharded = isinstance(t, ShardedTable)
+        if scheme in ("vap", "full"):
+            bi.vap = (make_sharded_index(t) if sharded
+                      else make_index(t.capacity, t.device))
+            self.ensure_coverage(bi)
         else:
-            bi.vap = make_index(t.capacity, t.device)
-        self.ensure_coverage(bi)
+            bi.vbp = (make_sharded_vbp(t) if sharded
+                      else make_vbp(t.capacity, t.device))
+            bi.cov_union = IntervalUnion()
         self.indexes[desc.name] = bi
         return bi
 
@@ -344,12 +365,27 @@ class Database:
                     pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
                 )
             )
+            if q.join_table is not None:
+                # The inner side of an equi-join is an indexable access
+                # path too (HIGH-S benefits from join-attribute indexes).
+                n_inner = self.tables[q.join_table].n_rows
+                self.monitor.observe(
+                    QueryRecord(
+                        kind="scan",
+                        table=q.join_table,
+                        pred_attrs=(q.join_inner_attr,),
+                        selectivity=min(stats.count / max(n_inner, 1), 1.0),
+                        tuples_scanned=n_inner,
+                        used_index=stats.used_index,
+                        rows_modified=0,
+                        ts_ms=self.clock_ms,
+                        template=q.template + ":join",
+                    )
+                )
         return stats
 
     def _exec_scan(self, q: Query) -> ExecStats:
         self._check_options()
-        if q.join_table is not None:
-            raise NotImplementedError("joins (HIGH-S) are not ported yet")
         t = self.tables[q.table]
         layout = self.layouts[q.table]
         plan = self.planner.plan_scan(q)
@@ -363,6 +399,7 @@ class Database:
             q.his,
             self.clock_ms_i32(),
             q.agg_attr,
+            contribs=q.join_table is not None,
         )
         vals = torch.stack([r.agg_sum, r.count, r.pages_scanned,
                             r.entries_probed, r.start_page]).tolist()
@@ -381,6 +418,10 @@ class Database:
         used = bi is not None
         if used:
             bi.last_used_ms = self.clock_ms
+        if q.join_table is not None:
+            count, join_cost, join_used = self._exec_join(q, r)
+            cost += join_cost
+            used = used or join_used
         return ExecStats(
             cost_units=cost,
             latency_ms=cost * self.time_per_unit_ms,
@@ -622,6 +663,47 @@ class Database:
                 )
             out[pos] = stats
 
+    def _exec_join(self, q: Query, outer):
+        """HIGH-S equi-join: count the pairs between the outer scan's
+        matches and the inner table's rows live at the snapshot on
+        ``join_attr == join_inner_attr``.  Cost model: index nested
+        loop when a VAP / FULL index leads with the inner join
+        attribute, hash join (one inner pass) otherwise.  The count runs
+        on the tables' device (the outer rows from the scan's contrib
+        planes, the sorted live inner values, ``searchsorted``); only
+        the count comes back.  Returns (pairs, cost, used_index)."""
+        inner_t = self.tables[q.join_table]
+        outer_t = self.tables[q.table]
+        ts = int(self.clock_ms) + 1
+        contrib = (outer.contribs if isinstance(outer, ShardScanResult)
+                   else outer.contrib)
+        outer_vals = outer_t.data[..., q.join_attr][contrib > 0]
+        live = (inner_t.begin_ts <= ts) & (ts < inner_t.end_ts)
+        inner_vals = torch.sort(inner_t.data[..., q.join_inner_attr][live]
+                                ).values
+        lo = torch.searchsorted(inner_vals, outer_vals, right=False)
+        hi = torch.searchsorted(inner_vals, outer_vals, right=True)
+        pairs = int((hi - lo).sum())
+
+        n_outer = int(outer_vals.numel())
+        n_inner = inner_t.n_rows
+        inner_idx = None
+        for bi in self.indexes_on(q.join_table):
+            if (
+                bi.desc.key_attrs
+                and bi.desc.key_attrs[0] == q.join_inner_attr
+                and bi.scheme in ("vap", "full")
+            ):
+                inner_idx = bi
+                break
+        if inner_idx is not None:
+            frac = inner_idx.built_fraction(inner_t)
+            probes = n_outer * (np.log2(max(n_inner, 2)) * cm.INDEX_PROBE_COST)
+            cost = probes + (1.0 - frac) * n_inner
+            inner_idx.last_used_ms = self.clock_ms
+            return pairs, float(cost), True
+        return pairs, float(n_inner), False
+
     def _exec_update(self, q: Query) -> ExecStats:
         self._check_options()
         t = self.tables[q.table]
@@ -689,9 +771,15 @@ class Database:
         )
 
     def _after_mutation(self, table: str) -> None:
-        """Zone maps summarise page contents, so they re-derive."""
+        """Inserted rows are unknown to VBP covering intervals: drop the
+        coverage claims (entries stay; scans re-check visibility).
+        Zone maps summarise page contents, so they re-derive too."""
         for key in [k for k in self._zone_maps if k[0] == table]:
             del self._zone_maps[key]
+        for bi in self.indexes_on(table):
+            if bi.scheme == "vbp":
+                bi.vbp = vbp_invalidate_coverage(bi.vbp)
+                bi.cov_union.clear()
 
     # ------------------------------------------------------------------
     # Tuner-side physical work, charged by the caller
@@ -750,6 +838,30 @@ class Database:
             take = open_pages[: int(pages)]
         self._cover_pages(bi, t, take, eligible)
         return float(take.size * t.page_size)
+
+    def vbp_populate(self, bi: BuiltIndex, q: Query, max_add: int) -> float:
+        """Populate the sub-domain ``q`` touches; returns work units
+        (charged to the query by immediate-DL tuners: the latency
+        spike).  Cost model: partitioning the still-uncracked region
+        (early cracks touch nearly the whole column, later ones little)
+        plus a sorted insertion per harvested entry; the population
+        piggybacks on the query's own scan, so no scan term."""
+        t = self.tables[bi.desc.table]
+        max_add = min(int(max_add), t.capacity)
+        entries_before = vbp_n_entries(bi.vbp)
+        lo, hi = self.planner.vbp_bounds(bi, q)
+        populate = (
+            sharded_vbp_populate_subdomain
+            if isinstance(bi.vbp, ShardedVbpState)
+            else vbp_populate_subdomain
+        )
+        bi.vbp, n_added = populate(bi.vbp, t, bi.desc.key_attrs, lo, hi,
+                                   self.clock_ms_i32(), max_add=max_add)
+        if n_added < max_add:  # the whole sub-domain fit: now covered
+            hlo, hhi = self.planner.vbp_host_key_bounds(bi, q)
+            bi.cov_union.add(hlo, hhi)
+        uncracked = max(t.n_rows - entries_before, 0)
+        return float(n_added) * 8.0 + 0.5 * float(uncracked)
 
     def clock_ms_i32(self) -> int:
         """Snapshot timestamp of the next statement (int32 range)."""

@@ -1,12 +1,14 @@
 """Ad-hoc secondary indexes with partial, incremental construction.
 
-Port of the VAP / FULL half of ``repro.core.index`` (the value-based
-VBP scheme lands with the baselines slice).  The index is a
-lexicographically sorted (key_hi, key_lo, rid) array with fixed
-capacity; invalid slots hold (INT32_MAX, INT32_MAX), which sorts after
-every real key (the TUNER domain is [1, 1m]).
+Port of ``repro.core.index``.  The index is a lexicographically
+sorted (key_hi, key_lo, rid) array with fixed capacity; invalid slots
+hold (INT32_MAX, INT32_MAX), which sorts after every real key (the
+TUNER domain is [1, 1m]).
 
 * ``FULL`` -- usable only once every page is indexed.
+* ``VBP``  -- value-based partial (cracking / SMIX / holistic): each
+  query's predicate sub-domain is populated on demand, and a covering
+  interval set says which sub-domains are complete.
 * ``VAP``  -- value-agnostic partial (the paper's scheme): each tuning
   cycle indexes the next ``pages_per_cycle`` fully populated pages in
   ascending page order; the only metadata is ``built_pages``.
@@ -275,6 +277,216 @@ def sharded_build_pages_vap(index: ShardedIndex, table: ShardedTable,
             new[s] = build_pages_vap(index.shard(s), table.shard(s),
                                      key_attrs, pages_per_cycle=step)
     return index.replace_shards(new)
+
+
+# ---------------------------------------------------------------------------
+# VBP: value-based partial population (cracking / SMIX / holistic style)
+# ---------------------------------------------------------------------------
+#
+# The covering metadata is host state, as ``n_entries`` is: four small
+# numpy int32 interval arrays and a host ``n_cov``, so the coverage test
+# costs no device round trip.  The entries and the ``in_index`` dedup
+# bitmap live on the table's device.
+#
+# A population merges only the wanted rows.  The reference also merges
+# ``max_add - n_added`` padding entries (invalid keys carrying the rids
+# of unwanted rows); they sort after every real key and after the old
+# index's own invalid tail, so they never survive the capacity cut (the
+# kept tail is a prefix of the old one) and the arrays come out the
+# same.
+
+MAX_INTERVALS = 64
+
+
+class VbpState(NamedTuple):
+    """VBP index + covering metadata.
+
+    ``cov_*`` is a fixed-capacity interval set over the composite key
+    domain (SMIX's covering tree): an interval means every tuple whose
+    key falls inside it is in the index.  ``in_index`` marks the rids
+    already indexed, so overlapping populations never duplicate an
+    entry."""
+
+    index: AdHocIndex
+    cov_lo_hi: np.ndarray  # (max_intervals,) int32 lower bound, hi comp
+    cov_lo_lo: np.ndarray  # (max_intervals,) int32 lower bound, lo comp
+    cov_hi_hi: np.ndarray  # (max_intervals,) int32 upper bound, hi comp
+    cov_hi_lo: np.ndarray  # (max_intervals,) int32 upper bound, lo comp
+    n_cov: int
+    in_index: torch.Tensor  # (row_capacity,) bool
+
+
+def _empty_cov(max_intervals: int) -> tuple:
+    return (np.full(max_intervals, I32_MAX, np.int32),
+            np.full(max_intervals, I32_MAX, np.int32),
+            np.full(max_intervals, I32_MIN, np.int32),
+            np.full(max_intervals, I32_MIN, np.int32))
+
+
+def make_vbp(capacity: int, device,
+             max_intervals: int = MAX_INTERVALS) -> VbpState:
+    return VbpState(make_index(capacity, device), *_empty_cov(max_intervals),
+                    0, torch.zeros(capacity, dtype=torch.bool, device=device))
+
+
+def vbp_is_covered(state, lo: KeyPair, hi: KeyPair) -> bool:
+    """True iff [lo, hi] lies inside one covered interval (either VBP
+    state type)."""
+    inside = keys_leq(state.cov_lo_hi, state.cov_lo_lo, lo)  # cov_lo <= lo
+    inside &= keys_geq(state.cov_hi_hi, state.cov_hi_lo, hi)  # hi <= cov_hi
+    inside &= np.arange(state.cov_lo_hi.shape[0]) < state.n_cov
+    return bool(inside.any())
+
+
+def _record_coverage(state, fits: bool, lo: KeyPair, hi: KeyPair) -> tuple:
+    """(cov_lo_hi, cov_lo_lo, cov_hi_hi, cov_hi_lo, n_cov) with [lo, hi]
+    written into slot ``min(n_cov, max_intervals - 1)`` when ``fits``:
+    past the last slot each new interval overwrites it while ``n_cov``
+    keeps counting, as in the reference."""
+    arrays = (state.cov_lo_hi, state.cov_lo_lo, state.cov_hi_hi,
+              state.cov_hi_lo)
+    if not fits:
+        return arrays + (state.n_cov,)
+    slot = min(state.n_cov, arrays[0].shape[0] - 1)
+    out = tuple(a.copy() for a in arrays)
+    for a, v in zip(out, (lo[0], lo[1], hi[0], hi[1])):
+        a[slot] = int(v)
+    return out + (state.n_cov + 1,)
+
+
+def vbp_invalidate_coverage(state):
+    """Drop coverage claims after table mutations (inserted rows are
+    unknown to the covering intervals).  Entries stay -- scans re-check
+    visibility -- but pure index scans are illegal until sub-domains are
+    populated again.  Either VBP state type."""
+    return state._replace(n_cov=0)
+
+
+def _merge_new(index: AdHocIndex, kh, kl, rids) -> AdHocIndex:
+    """Merge new entries (in rid order) into ``index``: old entries
+    before new ones on equal keys, as the reference's stable merge."""
+    n = int(rids.numel())
+    if n == 0:
+        return index
+    mh, ml, mr = _lexsort_merge(torch.cat([index.key_hi, kh]),
+                                torch.cat([index.key_lo, kl]),
+                                torch.cat([index.rids, rids.to(torch.int32)]),
+                                index.capacity)
+    return AdHocIndex(mh, ml, mr, index.n_entries + n, index.built_pages)
+
+
+def _marked(in_index: torch.Tensor, rids) -> torch.Tensor:
+    """``in_index`` with ``rids`` set (a new tensor when any is)."""
+    if rids.numel() == 0:
+        return in_index
+    out = in_index.clone()
+    out[rids] = True
+    return out
+
+
+def vbp_populate_subdomain(state: VbpState, table: Table, key_attrs: tuple,
+                           lo: KeyPair, hi: KeyPair, ts,
+                           max_add: int) -> Tuple[VbpState, int]:
+    """Add index entries for every tuple whose key is in [lo, hi]: the
+    first ``max_add`` wanted rows in rid order (the reference's stable
+    argsort of the unwanted mask puts exactly these first).  The
+    interval is recorded as covered only if the whole sub-domain fit.
+    Returns (state, n_added); a sub-domain already covered changes
+    nothing."""
+    del ts
+    if vbp_is_covered(state, lo, hi):
+        return state, 0
+    kh, kl = make_keys([table.data[:, :, a] for a in key_attrs])
+    kh, kl = kh.reshape(-1), kl.reshape(-1)
+    want = (table.begin_ts < INF_TS).reshape(-1)  # occupied
+    want &= keys_in_range(kh, kl, lo, hi) & ~state.in_index
+    rids = torch.nonzero(want).view(-1)  # rid order
+    n_want = int(rids.numel())
+    take = rids[:max_add]
+    index = _merge_new(state.index, kh[take], kl[take], take)
+    cov = _record_coverage(state, n_want <= max_add, lo, hi)
+    return (VbpState(index, *cov, _marked(state.in_index, take)),
+            int(take.numel()))
+
+
+class ShardedVbpState(NamedTuple):
+    """VBP over sharded storage.
+
+    The entries are per shard (local rids), held as one stacked
+    ``ShardedIndex`` (``index``), so shard-local scans need no
+    cross-shard gathers; the covering intervals and the ``in_index``
+    dedup bitmap live on the GLOBAL key / rid space: an interval claims
+    every tuple of the sub-domain whichever shard holds it, and the
+    "first ``max_add`` wanted rows in rid order" budget is a global
+    selection."""
+
+    index: ShardedIndex
+    cov_lo_hi: np.ndarray
+    cov_lo_lo: np.ndarray
+    cov_hi_hi: np.ndarray
+    cov_hi_lo: np.ndarray
+    n_cov: int
+    in_index: torch.Tensor  # (global row capacity,) bool
+
+    @property
+    def n_entries(self) -> int:
+        return self.index.n_entries
+
+
+def make_sharded_vbp(table: ShardedTable,
+                     max_intervals: int = MAX_INTERVALS) -> ShardedVbpState:
+    return ShardedVbpState(
+        make_sharded_index(table), *_empty_cov(max_intervals), 0,
+        torch.zeros(table.capacity, dtype=torch.bool, device=table.device))
+
+
+def sharded_vbp_populate_subdomain(state: ShardedVbpState,
+                                   table: ShardedTable, key_attrs: tuple,
+                                   lo: KeyPair, hi: KeyPair, ts,
+                                   max_add: int
+                                   ) -> Tuple[ShardedVbpState, int]:
+    """Sharded value-based population, equal to
+    ``vbp_populate_subdomain`` on the unsharded table: the wanted set
+    and the ``max_add`` budget are chosen in GLOBAL rid order (local
+    page lp of shard s is global page ``lp * S + s``), and each chosen
+    row merges into its owning shard's sorted entries.  As in the
+    reference, a slot whose global rid falls at or past the capacity
+    (only on a layout that is not round-robin) is not selectable."""
+    del ts
+    if vbp_is_covered(state, lo, hi):
+        return state, 0
+    S, psz, cap = table.n_shards, table.page_size, table.capacity
+    dev = table.device
+    kh, kl = make_keys([table.data[..., a] for a in key_attrs])
+    grid = (table.global_page_ids()[:, :, None] * psz
+            + torch.arange(psz, device=dev)).reshape(-1)
+    # Padding pages are never occupied (begin_ts == NEVER_TS).
+    want = (table.begin_ts < INF_TS) & keys_in_range(kh, kl, lo, hi)
+    cand = grid[want.reshape(-1)]
+    cand = cand[cand < cap]
+    cand = torch.sort(cand[~state.in_index[cand]]).values
+    n_want = int(cand.numel())
+    take = cand[:max_add]
+    gp, sl = take // psz, take % psz
+    owner, lp = gp % S, gp // S
+    slots = (owner * table.max_pages + lp) * psz + sl
+    nkh, nkl = kh.reshape(-1)[slots], kl.reshape(-1)[slots]
+    local = lp * psz + sl
+    new = {}
+    for s, n in enumerate(torch.bincount(owner, minlength=S).tolist()):
+        if n:
+            mine = owner == s
+            new[s] = _merge_new(state.index.shard(s), nkh[mine], nkl[mine],
+                                local[mine])
+    cov = _record_coverage(state, n_want <= max_add, lo, hi)
+    return (ShardedVbpState(state.index.replace_shards(new), *cov,
+                            _marked(state.in_index, take)),
+            int(take.numel()))
+
+
+def vbp_n_entries(state) -> int:
+    """Entry count of a ``VbpState`` or ``ShardedVbpState``."""
+    return state.index.n_entries
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """Query planner: access-path selection, selectivity estimation and
 cost accounting -- pure Python, no tensor dispatch.
 
-Port of ``repro.core.planner`` for plain tables and VAP / FULL
-indexes.  For a scan, consider each built index whose leading key
-attribute is constrained by the predicate, estimate selectivity, and
-pick a hybrid scan for selective queries -- falling back to a table
-scan when the predicate is not selective or no index matches.  FULL
-indexes are usable only when complete (then as a pure index scan).
+Port of ``repro.core.planner``.  For a scan, consider each built
+index whose leading key attribute is constrained by the predicate,
+estimate selectivity, and pick a hybrid scan for selective queries --
+falling back to a table scan when the predicate is not selective or no
+index matches.  FULL indexes are usable only when complete (then as a
+pure index scan); VBP indexes only when the query's sub-domain lies
+inside the merged interval set the planner keeps per VBP index
+(``IntervalUnion``), and then as a pure index scan (``pure_vbp``).
 A VAP index with a coverage bitmap that is not the legacy prefix
 plans the masked stitch (``hybrid_masked``) with the bitmap's view
 pinned into the plan.  On sharded storage a hybrid scan stitches per
@@ -14,8 +16,8 @@ shard (``hybrid_ps``) once shard-targeted builds have diverged from
 the global round-robin prefix or the table's layout is not
 round-robin.
 
-Value-based (VBP) indexes are not ported yet: a VBP index in the
-catalog raises.
+The replica router's what-if ``estimate_scan_cost`` comes with the
+replicas.
 """
 
 from __future__ import annotations
@@ -25,15 +27,45 @@ from typing import Optional, Tuple
 
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
-from repro_torch.core.index import ShardedIndex
+from repro_torch.core.index import ShardedIndex, key_range, vbp_n_entries
 from repro_torch.core.layout import LayoutState, scan_width_factor
 from repro_torch.core.table import ShardedTable
 
 HYBRID_SELECTIVITY_CUTOFF = 0.20  # optimizer switches to table scan above
 
 
-def _vbp_not_ported():
-    raise NotImplementedError("VBP indexes are not ported yet")
+class IntervalUnion:
+    """Host-side merged interval set over composite keys.
+
+    The VBP state tracks exact-interval coverage; two overlapping
+    populated sub-domains also jointly cover their union, so the planner
+    keeps this merged view per VBP index for its access-path choice."""
+
+    def __init__(self):
+        self.ivs: list = []  # sorted disjoint [(lo, hi)] of key tuples
+
+    def add(self, lo, hi) -> None:
+        ivs = sorted(self.ivs + [(lo, hi)])
+        merged = [ivs[0]]
+        for a, b in ivs[1:]:
+            la, lb = merged[-1]
+            if a <= lb:  # touching or overlapping (tuple compare)
+                if b > lb:
+                    merged[-1] = (la, b)
+            else:
+                merged.append((a, b))
+        self.ivs = merged
+
+    def covers(self, lo, hi) -> bool:
+        for a, b in self.ivs:
+            if a <= lo and hi <= b:
+                return True
+            if a > lo:
+                break
+        return False
+
+    def clear(self) -> None:
+        self.ivs = []
 
 
 def built_fraction_of(scheme: str, vap, vbp, table) -> float:
@@ -41,7 +73,7 @@ def built_fraction_of(scheme: str, vap, vbp, table) -> float:
     if scheme in ("vap", "full"):
         full_pages = max(table.n_rows // table.page_size, 1)
         return min(vap.built_pages / full_pages, 1.0)
-    _vbp_not_ported()
+    return min(vbp_n_entries(vbp) / max(table.n_rows, 1), 1.0)
 
 
 @dataclass
@@ -56,9 +88,10 @@ class BuiltIndex:
     """
 
     desc: IndexDescriptor
-    scheme: str  # 'vap' | 'full'
+    scheme: str  # 'vap' | 'vbp' | 'full'
     vap: Optional[object] = None  # AdHocIndex | ShardedIndex
-    vbp: Optional[object] = None  # VBP state (not ported)
+    vbp: Optional[object] = None  # VbpState | ShardedVbpState
+    cov_union: Optional[IntervalUnion] = None  # VBP merged coverage
     complete: bool = False  # FULL usable flag
     building: bool = True  # under construction (VAP/FULL)
     created_ms: float = 0.0
@@ -80,7 +113,7 @@ class BuiltIndex:
             )
         if self.scheme in ("vap", "full"):
             return 12.0 * float(self.vap.n_entries)
-        _vbp_not_ported()
+        return 12.0 * float(vbp_n_entries(self.vbp))
 
 
 @dataclass(frozen=True)
@@ -93,12 +126,22 @@ class IndexSnapshot:
     complete: bool
 
 
+def _engine_state(path: str, vap, vbp):
+    """Raw sorted-entry state for the engine given an access path: the
+    pure VBP scan needs only the entries (an ``AdHocIndex``, or the
+    stacked ``ShardedIndex`` on sharded storage), not the covering
+    metadata."""
+    if path == "pure_vbp":
+        return vbp.index
+    return vap
+
+
 @dataclass(frozen=True)
 class ScanPlan:
     """One planned scan: the access path plus the index serving it.
 
     ``path`` is 'table' | 'hybrid' | 'hybrid_ps' | 'hybrid_masked' |
-    'pure_vap'.
+    'pure_vbp' | 'pure_vap'.
     ``pinned_state`` is the index state the plan was minted against;
     ``pinned_coverage`` the frozen ``CoverageView`` of the masked path
     (every plan of a burst is minted before any dispatch, so the view
@@ -123,7 +166,7 @@ class ScanPlan:
             return None
         if self.pinned_state is not None:
             return self.pinned_state
-        return bi.vap
+        return _engine_state(self.path, bi.vap, bi.vbp)
 
     @property
     def group_key(self):
@@ -178,12 +221,14 @@ class QueryPlanner:
             vap, vbp, complete = self._states(bi)
             if bi.scheme == "full" and not complete:
                 continue
-            if bi.scheme == "vbp":
-                _vbp_not_ported()
             covered = len(set(bi.desc.key_attrs) & set(q.attrs))
             frac = built_fraction_of(
                 bi.scheme, vap, vbp, self.db.tables[q.table]
             )
+            if bi.scheme == "vbp":
+                lo, hi = self.vbp_host_key_bounds(bi, q)
+                if not bi.cov_union.covers(lo, hi):
+                    continue
             key = (covered, frac)
             if key > best_key:
                 best, best_key = bi, key
@@ -195,7 +240,10 @@ class QueryPlanner:
             bi = self.choose_index(q)
         if bi is None:
             return ScanPlan("table")
-        vap, _vbp, complete = self._states(bi)
+        vap, vbp, complete = self._states(bi)
+        if bi.scheme == "vbp":
+            return ScanPlan("pure_vbp", bi,
+                            pinned_state=_engine_state("pure_vbp", vap, vbp))
         if bi.scheme == "full" and complete:
             return ScanPlan("pure_vap", bi, pinned_state=vap)
         cov = bi.coverage
@@ -239,6 +287,30 @@ class QueryPlanner:
         if bi.desc.name in self.db.pershard_built:
             return True
         return not self.db.table_is_round_robin(bi.desc.table)
+
+    # -- VBP key bounds --------------------------------------------------
+    @staticmethod
+    def vbp_host_key_bounds(bi: BuiltIndex, q):
+        """Host-side composite-key bounds ((hi, lo) int tuples); a
+        2-attribute index whose second attribute the predicate leaves
+        open spans that attribute's whole domain."""
+        pmap = {a: k for k, a in enumerate(q.attrs)}
+        ka = bi.desc.key_attrs
+        lo0, hi0 = int(q.los[pmap[ka[0]]]), int(q.his[pmap[ka[0]]])
+        if len(ka) == 2 and ka[1] in pmap:
+            lo1, hi1 = int(q.los[pmap[ka[1]]]), int(q.his[pmap[ka[1]]])
+        elif len(ka) == 2:
+            lo1, hi1 = -(2**31) + 1, 2**31 - 2
+        else:
+            lo1, hi1 = 0, 0
+        return (lo0, lo1), (hi0, hi1)
+
+    @classmethod
+    def vbp_bounds(cls, bi: BuiltIndex, q):
+        (lo0, lo1), (hi0, hi1) = cls.vbp_host_key_bounds(bi, q)
+        if len(bi.desc.key_attrs) == 2:
+            return key_range(lo0, hi0, lo1, hi1)
+        return key_range(lo0, hi0)
 
 
 def scan_cost(

@@ -172,10 +172,23 @@ def test_unported_features_raise():
     src = P.make_tuner_db(n_rows=500, page_size=64, device="cpu")
     db = P.Database(dict(src.tables))
     gen = P.QueryGen(src)
-    with pytest.raises(NotImplementedError):
-        db.execute(gen.high_s())
-    with pytest.raises(NotImplementedError):
-        db.create_index(P.IndexDescriptor("narrow", (1,)), "vbp")
+    # HIGH-S joins and VBP indexes are ported: a join and a VBP
+    # population equal the reference's on the same tables
+    # (tests/test_torch_joins.py, tests/test_torch_vbp.py).
+    rsrc = R.make_tuner_db(n_rows=500, page_size=64)
+    rdb = R.Database(dict(rsrc.tables))
+    rgen = R.QueryGen(rsrc)
+    assert _stats(db.execute(gen.high_s())) == _stats(
+        rdb.execute(rgen.high_s()))
+    pbi = db.create_index(P.IndexDescriptor("narrow", (1,)), "vbp")
+    rbi = rdb.create_index(R.IndexDescriptor("narrow", (1,)), "vbp")
+    q, rq = gen.low_s(pos=0.4), rgen.low_s(pos=0.4)
+    cap = src.tables["narrow"].capacity
+    assert db.vbp_populate(pbi, q, cap) == rdb.vbp_populate(rbi, rq, cap)
+    assert _stats(db.execute(q)) == _stats(rdb.execute(rq))
+    assert db.planner.plan_scan(q).path == "pure_vbp"
+    assert db.clock_ms == rdb.clock_ms
+    db.drop_index(pbi.desc.name)
     # Sharded storage is ported: the tables are partitioned round-robin
     # (parity with the reference in tests/test_torch_sharded.py).
     sharded = P.Database(dict(src.tables), num_shards=2)

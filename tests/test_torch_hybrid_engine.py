@@ -199,7 +199,8 @@ def test_engine_single_scan_and_unported_paths():
         _assert_same(r, p, R_hs.BatchScanResult._fields)
         assert eng.last_tier == tier
     # ``hybrid_ps`` is ported: on a plain table (no shards) it is the
-    # hybrid scan, as in the reference.  VBP scans still raise.
+    # hybrid scan, as in the reference.  So is ``pure_vbp``: the pure
+    # index scan over the entries it is handed, as in the reference.
     for use_kernel, tier in ((False, "single"), (True, "kernel")):
         r = RefEngine().scan_batch(rt, "hybrid_ps", ri, (1,), (1,), blos,
                                    bhis, btss, 3, use_kernel=use_kernel)
@@ -208,8 +209,20 @@ def test_engine_single_scan_and_unported_paths():
                            torch.from_numpy(btss), 3, use_kernel=use_kernel)
         _assert_same(r, p, R_hs.BatchScanResult._fields)
         assert eng.last_tier == tier
-    with pytest.raises(NotImplementedError):
-        eng.scan_batch(pt, "pure_vbp", pi, (1,), (1,), None, None, None, 3)
+    for use_kernel in (False, True):
+        r = RefEngine().scan_batch(rt, "pure_vbp", ri, (1,), (1,), blos,
+                                   bhis, btss, 3, use_kernel=use_kernel)
+        p = eng.scan_batch(pt, "pure_vbp", pi, (1,), (1,),
+                           torch.from_numpy(blos), torch.from_numpy(bhis),
+                           torch.from_numpy(btss), 3, use_kernel=use_kernel)
+        _assert_same(r, p, R_hs.BatchScanResult._fields)
+        assert eng.last_tier == "single"
+    vbp_plan = ScanPlan("pure_vbp", _Bi((1,)), pinned_state=pi)
+    r = RefEngine().scan(rt, type(ref_plan)("pure_vbp", ref_plan.index,
+                                            pinned_state=ri), (1,),
+                         jnp.array(los), jnp.array(his), 6, 3)
+    p = eng.scan(pt, vbp_plan, (1,), los, his, 6, 3)
+    _assert_same(r, p, R_hs.ScanResult._fields)
     # Sharded storage is ported (tests/test_torch_sharded.py); anything
     # else is no table.
     with pytest.raises(TypeError):

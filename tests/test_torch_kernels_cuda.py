@@ -503,3 +503,59 @@ def test_cuda_run_workload_kernel_twin_equals_plain_twin(cuda, num_shards,
             assert getattr(out[True], f.name) == getattr(out[False], f.name), (
                 f.name)
     assert out[True].tuner_work_units > 0.0
+
+
+@pytest.mark.parametrize("num_shards", [1, 4], ids=["K1", "K4-vbp"])
+def test_cuda_adaptive_bursts_kernel_twin_equals_plain_twin(cuda,
+                                                            num_shards):
+    """The baselines' read bursts on the card: an ``AdaptiveTuner`` run
+    (VBP populations on every scan, ``pure_vbp`` once a sub-domain is
+    covered) of 72 read_heavy queries in bursts of 6.  The run with
+    ``use_kernel`` launches K1 for the table groups on one shard and K4
+    on 4 shards (a ``ShardedVbpState`` over stacked shards), and equals
+    the plain run in every RunResult field but wall_s and
+    execution_tiers, with the same VBP index states."""
+    import dataclasses
+
+    from repro_torch import api as P
+
+    src = P.make_tuner_db(n_rows=3_000, page_size=128, device=cuda)
+    out, dbs = {}, {}
+    for use_kernel in (True, False):
+        tables = {k: t._replace(data=t.data.clone(),
+                                begin_ts=t.begin_ts.clone(),
+                                end_ts=t.end_ts.clone())
+                  for k, t in src.tables.items()}
+        tdb = P.TunerDB(tables=tables, quantiles=src.quantiles,
+                        n_rows=src.n_rows, rng=None)
+        gen = P.QueryGen(tdb, selectivity=0.01, seed=23)
+        wl = P.hybrid_workload(gen, "read_heavy", total=72, phase_len=24,
+                               seed=2)
+        db = P.Database(dict(tdb.tables))
+        cfg = P.RunConfig(
+            execution=P.ExecOptions(read_batch_size=6, num_shards=num_shards,
+                                    use_kernel=use_kernel),
+            tuning=P.TuningOptions(tuning_interval_ms=2.0))
+        before = (bfa.launches, bfa.sharded_launches)
+        out[use_kernel] = P.run_workload(db, P.AdaptiveTuner(db), wl, cfg)
+        dbs[use_kernel] = db
+        launched = (bfa.launches - before[0],
+                    bfa.sharded_launches - before[1])
+        if use_kernel:
+            assert launched[num_shards > 1] > 0
+            assert launched[num_shards == 1] == 0
+        else:
+            assert launched == (0, 0)
+    for f in dataclasses.fields(P.RunResult):
+        if f.name not in ("wall_s", "execution_tiers"):
+            assert getattr(out[True], f.name) == getattr(out[False], f.name), (
+                f.name)
+    assert list(dbs[True].indexes) == list(dbs[False].indexes)
+    for name, a in dbs[True].indexes.items():
+        b = dbs[False].indexes[name]
+        assert a.scheme == "vbp" and a.cov_union.ivs == b.cov_union.ivs
+        for x, y in zip(a.vbp.index[:3], b.vbp.index[:3]):
+            assert torch.equal(x, y)
+        assert torch.equal(a.vbp.in_index, b.vbp.in_index)
+    assert any(dbs[True].planner.plan_scan(q).path == "pure_vbp"
+               for _, q in wl if q.kind == "scan")

@@ -4,8 +4,9 @@ Sharded tables, indexes, builds and mutators; every batched scan
 family over uniform round-robin and skewed 36/4/4/4 pre-sharded
 layouts, with the port's kernel path (K4 / K3 plain versions on the
 CPU) and its plain path against the reference's stacked path; the
-database cases of ``test_sharded_engine.py`` (without joins, VBP and
-the runner) and of ``test_coverage_bitmap.py`` at 4 shards; and a
+database cases of ``test_sharded_engine.py`` (joins and VBP are in
+tests/test_torch_joins.py and tests/test_torch_vbp.py, the runner in
+tests/test_torch_runner.py) and of ``test_coverage_bitmap.py`` at 4 shards; and a
 burst loop with tuning on 4 shards.  Tolerance 0 everywhere: every
 int32 aggregate and every cost, clock and monitor field is compared
 for equality.
@@ -493,8 +494,8 @@ def test_masked_family_matches_reference(cover):
 @pytest.mark.parametrize("path", FAMILIES + ("hybrid_masked",))
 def test_single_query_scans_match_reference(path):
     """``ScanEngine.scan`` on sharded storage (tier ``loop``) against
-    the reference's single-query sharded operators; the reference's
-    per-shard contrib planes belong to joins and are not compared."""
+    the reference's single-query sharded operators, the per-shard
+    contrib planes (which the join reads) included."""
     rst, rix, pst, pix = _engine_state(shard_builds=((1, 3),))
     views = _coverage_pair(rst, P_ix.eligible_global_pages(pst)[::2])
     rdesc = R.IndexDescriptor("narrow", (1,))
@@ -513,10 +514,24 @@ def test_single_query_scans_match_reference(path):
                                       jnp.asarray([lo]),
                                       jnp.asarray([lo + width]), 7, 2)
         eng = P_eng.ScanEngine()
-        got = eng.scan(pst, pplan, (1,), (lo,), (lo + width,), 7, 2)
+        got = eng.scan(pst, pplan, (1,), (lo,), (lo + width,), 7, 2,
+                       contribs=True)
         assert eng.last_tier == "loop"
         for f in got._fields:
+            if f == "contribs":
+                continue
             assert int(getattr(got, f)) == int(getattr(ref, f)), (path, f)
+        assert len(ref.contribs) == pst.n_shards
+        for s, (lp, plane) in enumerate(zip(pst.local_pages, ref.contribs)):
+            np.testing.assert_array_equal(got.contribs[s, :lp].numpy(),
+                                          np.asarray(plane))
+            assert not got.contribs[s, lp:].any()
+        assert int(got.contribs.sum()) == int(got.count) > 0
+        # Only a join's outer scan asks for the planes.
+        bare = eng.scan(pst, pplan, (1,), (lo,), (lo + width,), 7, 2)
+        assert bare.contribs is None
+        assert [int(x) for x in bare[:2] + bare[3:]] == [
+            int(x) for x in got[:2] + got[3:]]
 
 
 def test_mutation_then_kernel_scan_sees_the_new_rows():
