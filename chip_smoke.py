@@ -115,6 +115,28 @@ Phases, each asserted (any failure exits non-zero):
    shards (sharded VBP), equal to (b)'s 1-shard run.  K1 (K4 on
    shards) launches in every kernel twin, none in the plain twins, and
    the twins' index states are equal.
+10. The async build lane, the open-loop front end and single-engine
+   faults through ``run_workload`` on phase 3's table at phase 8's
+   scale, each arm a kernel twin against a plain twin equal in every
+   simulated field (all but wall_s, execution_tiers and
+   build_pages_per_ms, with no escalated drain: its size reads the wall
+   clock), configured from the repo's benchmarks with budgets and page
+   counts x rows / 20,000 and intervals, cadences, deadlines and SLOs x
+   one table scan's ratio (5): (a) ``benchmarks/async_tuning.py``
+   (read_only, phases of 100, bursts of 8) serialized and
+   deterministic, equal field for field, on 1 shard (K1) and 4
+   round-robin shards (K4), 4 equal to 1; (b) its overlap run, results
+   equal to (a)'s, with each run's charged and overlapped build time,
+   p99 and cumulative latency; (c) ``benchmarks/serving_slo.py``'s
+   ``fixed_always`` and ``deadline_throttle`` on one bursty stream (p99,
+   p999, miss rate, deferrals, shed quanta); (d)
+   ``benchmarks/fault_recovery.py``'s transient categories (no outage)
+   on (c)'s throttled stream in overlap mode: a zero-fault schedule
+   equal to none in every field, recovery on and off with results
+   equal to the fault-free run's, the fault counters; (e) overlap with
+   crack-on-scan on phase 8(e)'s configuration (K3).  Every fifth scan
+   of (a)'s 1-shard serialized run, (c)'s fixed run and (e) is held to
+   numpy; every other arm's results are held equal to one of them.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -178,6 +200,15 @@ FIG7_ROWS = 20_000
 FIG7_SEG_LEN = 400
 JOIN_NOISE = 0.2  # (c): LOW-S scans that batch, between the joins
 SMIX_BUDGET = 12.0 * N_ROWS / 2  # half a full index: forces LRU drops
+# Phase 10: the build lane, the open loop and faults.  The repo's
+# benchmarks (async_tuning, serving_slo, fault_recovery) run 20,000-row
+# tables at 1e-4 ms per tuple touch: budgets and page counts scale with
+# the rows, times with one table scan's simulated latency (x5).
+LANE_BENCH_ROWS, LANE_BENCH_UNIT_MS = 20_000, 1e-4
+LANE_TOTAL = 1_200  # the benchmarks' depth
+LANE_ASYNC_PHASE_LEN = 100   # benchmarks/async_tuning.py
+LANE_SERVING_PHASE_LEN = 150  # benchmarks/serving_slo.py
+LANE_FAULT_QUEUE_CAP = 1_024  # (d): past the deepest queue
 
 
 def emit(obj) -> None:
@@ -1408,17 +1439,20 @@ def numpy_oracle(db, workload, shared_ts):
 
 
 def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
-             oracle=False, shared_ts=False, db_kw=None, serving_kw=None):
-    """One ``run_workload`` of the closed loop on the card; returns the
+             oracle=False, shared_ts=False, db_kw=None, serving_kw=None,
+             faults_kw=None):
+    """One ``run_workload`` on the card (the closed loop, or the open
+    loop when ``serving_kw`` names an arrival stream); returns the
     RunResult, the database, the kernel launches of the run (each
     count set to 0 just before it) and, with ``oracle``, the
     ``finish`` of a ``numpy_oracle`` (``shared_ts`` passed on), else
     None.  ``tuner`` is "dis", "predictive", a TunerConfig's fields or
-    a callable that makes the tuner from the database."""
+    a callable that makes the tuner from the database; ``faults_kw``
+    are ``FaultOptions`` fields."""
     from repro_torch.api import (Database, DisabledTuner, ExecOptions,
-                                 PredictiveTuner, RunConfig, ServingOptions,
-                                 TunerConfig, TuningOptions, make_dl_tuner,
-                                 run_workload)
+                                 FaultOptions, PredictiveTuner, RunConfig,
+                                 ServingOptions, TunerConfig, TuningOptions,
+                                 make_dl_tuner, run_workload)
 
     db = Database({"narrow": table}, time_per_unit_ms=LOOP_UNIT_MS,
                   **(db_kw or {}))
@@ -1434,6 +1468,7 @@ def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
                                           **exec_kw),
                     tuning=TuningOptions(**tuning_kw),
                     serving=ServingOptions(**(serving_kw or {})),
+                    faults=FaultOptions(**(faults_kw or {})),
                     time_per_unit_ms=LOOP_UNIT_MS)
     finish = numpy_oracle(db, workload, shared_ts) if oracle else None
     torch.cuda.synchronize()
@@ -1445,13 +1480,15 @@ def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
 
 
 def result_diffs(a, b):
-    """Fields of two RunResults that differ (all but wall_s and
-    execution_tiers), and the elements of ``results`` and
-    ``latencies_ms`` that differ."""
+    """Fields of two RunResults that differ (all but wall_s,
+    execution_tiers and build_pages_per_ms, the build lane's measured
+    throughput), and the elements of ``results`` and ``latencies_ms``
+    that differ."""
     import dataclasses
 
     fields = [f.name for f in dataclasses.fields(a)
-              if f.name not in ("wall_s", "execution_tiers")
+              if f.name not in ("wall_s", "execution_tiers",
+                                "build_pages_per_ms")
               and getattr(a, f.name) != getattr(b, f.name)]
     elements = sum(x != y for name in ("results", "latencies_ms")
                    for x, y in zip(getattr(a, name), getattr(b, name)))
@@ -1460,11 +1497,13 @@ def result_diffs(a, b):
 
 def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
              tuning_kw, must_launch, numpy_check=False, shared_ts=False,
-             db_kw=None, serving_kw=None, after=None):
-    """One arm of phases 8 and 9: a kernel twin (``use_kernel``) and a
+             db_kw=None, serving_kw=None, faults_kw=None, after=None):
+    """One arm of phases 8-10: a kernel twin (``use_kernel``) and a
     plain twin, each on its own table from ``make_table``.  Every
-    simulated field must agree, the kernel twin must launch each kernel
-    of ``must_launch`` and the plain twin none; with ``numpy_check``
+    simulated field must agree (no escalated build-lane drain may
+    occur: their size reads the wall clock), the kernel twin must
+    launch each kernel of ``must_launch`` and the plain twin none; with
+    ``numpy_check``
     every LOOP_CHECK_EVERY-th statement of the kernel twin that is a
     scan is held to a numpy scan of the rows live at its snapshot (a
     join's pair count to a numpy pair count; ``numpy_oracle``, which
@@ -1488,7 +1527,7 @@ def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
             torch, bfa, make_table(), workload, tuner,
             dict(exec_kw, use_kernel=use_kernel), tuning_kw,
             oracle=numpy_check and use_kernel, shared_ts=shared_ts,
-            db_kw=db_kw, serving_kw=serving_kw)
+            db_kw=db_kw, serving_kw=serving_kw, faults_kw=faults_kw)
     (rk, dbk, lk, finish), (rp, dbp, lp, _) = out[True], out[False]
     fields, elements = result_diffs(rk, rp)
     extra = after(dbk, dbp) if after is not None else {}
@@ -1517,6 +1556,7 @@ def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
               peak_bytes=peak, seconds=time.perf_counter() - t_arm,
               check_seconds=time.perf_counter() - t_check, **extra))
     assert not fields and elements == 0, (tag, fields, elements)
+    assert rk.build_escalations == rp.build_escalations == 0, tag
     assert all(lp[k] == 0 for k in lp), (tag, lp)
     for k in must_launch:
         assert lk[k] > 0, (tag, k, lk)
@@ -1829,6 +1869,215 @@ def phase_baselines(torch, bfa, initial):
     return launches
 
 
+def phase_build_lane(torch, bfa, initial):
+    """Phase 10: the async build lane, the open-loop front end and
+    single-engine faults through ``run_workload`` on phase 3's 10M-row
+    table at phase 8's scale, each arm a kernel twin against a plain
+    twin.  The configurations are the repo's benchmarks scaled as phase
+    9 scaled fig7: budgets and page counts x rows / 20,000, intervals,
+    cadences, deadlines and SLOs x the ratio of one unindexed table
+    scan here to one there.  (a) ``benchmarks/async_tuning.py``
+    serialized and deterministic, equal field for field, on 1 shard
+    (K1) and 4 round-robin shards (K4, equal to 1); (b) its overlap
+    run, results equal to (a)'s; (c) ``benchmarks/serving_slo.py``'s
+    two policies on one bursty stream (open loop); (d)
+    ``benchmarks/fault_recovery.py``'s transient categories (no
+    outage) on (c)'s throttled stream in overlap mode: a zero-fault
+    schedule equals none, recovery on and off keep the results; (e)
+    overlap with crack-on-scan on phase 8(e)'s configuration (K3).
+    Every fifth scan of (a)'s 1-shard, (c)'s fixed run and (e) is held
+    to numpy; every other arm's results are held equal to one of
+    those.  Returns the kernel twins' launches."""
+    from repro_torch.api import (TUNING_FREQ_MS, Database, FaultSchedule,
+                                 QueryGen, hybrid_workload)
+
+    t_phase = time.perf_counter()
+    src = initial.tables["narrow"]
+    scale = N_ROWS // LANE_BENCH_ROWS  # budgets and page counts
+    ratio = (N_ROWS * LOOP_UNIT_MS) / (LANE_BENCH_ROWS * LANE_BENCH_UNIT_MS)
+    launches, peaks, seconds, runs = dict(K1=0, K3=0, K4=0), [], {}, {}
+
+    def table():
+        return clone_table(src)
+
+    def arm(tag, *a, **k):
+        t_arm = time.perf_counter()
+        res, lk, peak, _ = loop_arm(torch, bfa, tag, table, *a, **k)
+        for key in launches:
+            launches[key] += lk[key]
+        peaks.append(peak)
+        seconds[tag] = time.perf_counter() - t_arm
+        runs[tag] = res
+        return res
+
+    def equal(tag, a, b, results_only=False):
+        if results_only:
+            fields = [] if a.results == b.results else ["results"]
+            elements = sum(x != y for x, y in zip(a.results, b.results))
+        else:
+            fields, elements = result_diffs(a, b)
+        emit(dict(phase="lane_equal", check=tag, differing_fields=fields,
+                  differing_elements=elements))
+        assert not fields and elements == 0, (tag, fields, elements)
+
+    def lane(res):
+        return dict(cumulative_ms=res.cumulative_ms, p99_ms=res.p99_latency_ms,
+                    tuner_charged_ms=res.tuner_charged_ms,
+                    tuner_overlapped_ms=res.tuner_overlapped_ms,
+                    tuner_work_units=res.tuner_work_units,
+                    build_pages_per_ms=res.build_pages_per_ms)
+
+    # A table scan's simulated latency (no index), for the record.
+    probe = Database({"narrow": src}, time_per_unit_ms=LOOP_UNIT_MS)
+    scan_ms = probe.execute(QueryGen(initial, selectivity=0.01, seed=1)
+                            .low_s(), observe=False).latency_ms
+    del probe
+
+    # (a), (b): benchmarks/async_tuning.py.
+    gen = QueryGen(initial, selectivity=0.01, seed=29)
+    awl = hybrid_workload(gen, "read_only", total=LANE_TOTAL,
+                          phase_len=LANE_ASYNC_PHASE_LEN, seed=7)
+    atuner = dict(storage_budget_bytes=50e6 * scale,
+                  pages_per_cycle=8 * scale,
+                  max_build_pages_per_cycle=16 * scale,
+                  candidate_min_count=2)
+    atuning = dict(tuning_interval_ms=25.0 * ratio,
+                   build_quantum_pages=8 * scale)
+    for S, kernel in ((1, "K1"), (4, "K4")):
+        for mode in (None, "deterministic"):
+            arm(f"a_{mode or 'serialized'}_{S}_shards", awl, atuner,
+                dict(num_shards=S), dict(atuning, async_tuning=mode),
+                must_launch=(kernel,), numpy_check=(S, mode) == (1, None))
+        equal(f"a_deterministic_equals_serialized_{S}_shards",
+              runs[f"a_deterministic_{S}_shards"],
+              runs[f"a_serialized_{S}_shards"])
+    equal("a_4_shards_equal_1", runs["a_serialized_4_shards"],
+          runs["a_serialized_1_shards"])
+    ser = runs["a_serialized_1_shards"]
+    assert ser.tuner_charged_ms > 0.0 and ser.tuner_overlapped_ms == 0.0
+    ovl = arm("b_overlap_1_shard", awl, atuner, dict(num_shards=1),
+              dict(atuning, async_tuning="overlap"), must_launch=("K1",))
+    equal("b_results_equal_a", ovl, ser, results_only=True)
+    assert ovl.tuner_charged_ms == 0.0 < ovl.tuner_overlapped_ms
+    emit(dict(phase="lane_overlap", deterministic=lane(
+        runs["a_deterministic_1_shards"]), overlap=lane(ovl),
+              p99_overlap_over_deterministic=ovl.p99_latency_ms
+              / runs["a_deterministic_1_shards"].p99_latency_ms))
+
+    # (c): benchmarks/serving_slo.py's two policies on one stream.
+    gen = QueryGen(initial, selectivity=0.01, seed=29)
+    swl = hybrid_workload(gen, "read_only", total=LANE_TOTAL,
+                          phase_len=LANE_SERVING_PHASE_LEN, seed=7)
+    stuner = dict(storage_budget_bytes=50e6 * scale,
+                  pages_per_cycle=32 * scale,
+                  max_build_pages_per_cycle=64 * scale,
+                  candidate_min_count=2)
+    stream = dict(arrival_stream="bursty", arrival_ms=5.0 * ratio,
+                  arrival_seed=11, slo_ms=6.0 * ratio)
+    throttle = dict(stream, burst_deadline_ms=2.0 * ratio,
+                    build_throttle=True, load_shed_tuning=True)
+    stuning = dict(tuning_interval_ms=25.0 * ratio, build_queue_cap=16)
+
+    def slo(res):
+        return dict(p99_ms=res.p99_latency_ms, p999_ms=res.p999_latency_ms,
+                    miss_rate=res.deadline_miss_rate,
+                    deferrals=res.build_throttle_deferrals,
+                    shed_quanta=res.build_shed_quanta,
+                    tuner_charged_ms=res.tuner_charged_ms,
+                    tuner_overlapped_ms=res.tuner_overlapped_ms,
+                    worst_phase_p99_ms=max(
+                        s.p99_ms for _, s in res.slo_report.phases))
+
+    fixed = arm("c_fixed_always", swl, stuner, dict(num_shards=1),
+                dict(stuning, async_tuning="deterministic"),
+                must_launch=("K1",), serving_kw=stream, numpy_check=True)
+    served = arm("c_deadline_throttle", swl, stuner, dict(num_shards=1),
+                 dict(stuning, async_tuning="deterministic"),
+                 must_launch=("K1",), serving_kw=throttle)
+    equal("c_results_equal", served, fixed, results_only=True)
+    emit(dict(phase="lane_serving", fixed_always=slo(fixed),
+              deadline_throttle=slo(served),
+              p99_fixed_over_throttle=fixed.p99_latency_ms
+              / served.p99_latency_ms))
+
+    # (d): faults on one engine, (c)'s throttled stream, overlap lane
+    # (quanta of 8 pages before scaling, as (b)'s).  Scan errors and
+    # stragglers hold the throttle's pause on long enough for ~400
+    # quanta to queue (a CPU dry run at 0.2M and 1M rows), so the queue
+    # cap is set past that: no drain escalates (an escalated drain's
+    # size reads the wall clock) and nothing is shed.
+    dtuning = dict(stuning, async_tuning="overlap",
+                   build_quantum_pages=8 * scale,
+                   build_queue_cap=LANE_FAULT_QUEUE_CAP)
+    sched = dict(seed=11, scan_error_rate=0.08, straggler_rate=0.1,
+                 straggler_ms=0.3 * ratio, build_fail_rate=0.2)
+    d = {}
+    for name, faults in (
+            ("fault_free", None),
+            ("zero_fault", dict(fault_schedule=FaultSchedule(seed=11))),
+            ("recovery", dict(fault_schedule=FaultSchedule(**sched))),
+            ("no_recovery", dict(fault_schedule=FaultSchedule(**sched),
+                                 fault_recovery=False))):
+        d[name] = arm(f"d_{name}", swl, stuner, dict(num_shards=1), dtuning,
+                      must_launch=("K1",), serving_kw=throttle,
+                      faults_kw=faults)
+    equal("d_zero_fault_equals_none", d["zero_fault"], d["fault_free"])
+    equal("d_fault_free_results_equal_c", d["fault_free"], fixed,
+          results_only=True)
+    for name in ("recovery", "no_recovery"):
+        equal(f"d_{name}_results_equal_fault_free", d[name],
+              d["fault_free"], results_only=True)
+        r = d[name]
+        assert r.fault_build_failures > 0, name
+        assert r.fault_scan_retries + r.fault_stragglers > 0, name
+        assert r.cumulative_ms > d["fault_free"].cumulative_ms, name
+    # Off, every failed quantum is dropped: never retried or quarantined.
+    assert d["no_recovery"].fault_quarantined_builds == 0
+    emit(dict(phase="lane_faults", schedule=sched, **{
+        name: dict(slo(r), scan_retries=r.fault_scan_retries,
+                   stragglers=r.fault_stragglers,
+                   build_failures=r.fault_build_failures,
+                   quarantined=r.fault_quarantined_builds,
+                   tuner_work_units=r.tuner_work_units,
+                   availability=r.availability)
+        for name, r in d.items()}))
+
+    # (e): phase 8(e)'s configuration (crack-on-scan and decay on the
+    # read_heavy workload, default tuner, FAST) on the overlap lane.
+    # FAST fires about one cycle per burst here, and a burst gives the
+    # lane one or two drains: with the default 8-page quanta the queue
+    # outgrows its cap and the drains escalate (213 times on the H100;
+    # 208 on the CPU at 1M rows with the interval scaled), so a quantum
+    # is one index's cycle slice (the default 32 pages).
+    gen = QueryGen(initial, selectivity=0.01, seed=17 + LOOP_PHASE_LEN)
+    ewl = hybrid_workload(gen, "read_heavy", total=LOOP_TOTAL,
+                          phase_len=LOOP_PHASE_LEN)
+    e = arm("e_overlap_crack", ewl, "predictive", dict(num_shards=1),
+            dict(tuning_interval_ms=TUNING_FREQ_MS["fast"],
+                 async_tuning="overlap", crack_on_scan=True,
+                 index_decay=True, build_quantum_pages=32),
+            must_launch=("K3",), numpy_check=True, shared_ts=True)
+    assert e.tuner_overlapped_ms > 0.0
+
+    emit(dict(phase="build_lane", seconds=time.perf_counter() - t_phase,
+              arm_seconds=seconds, peak_bytes=max(peaks), launches=launches,
+              table_scan_ms=scan_ms, interval_ratio=ratio,
+              budget_scale=scale))
+    emit(dict(phase="scale_build_lane",
+              reduced=[],
+              note=f"{N_ROWS} rows x 21 attrs, page_size {PAGE_SIZE}: "
+                   f"phase 3's table; (a)-(d) {LANE_TOTAL} statements "
+                   f"(the benchmarks' depth), budgets x{scale} (rows / "
+                   f"{LANE_BENCH_ROWS}), intervals, cadences, deadlines "
+                   f"and SLOs x{ratio:g} (one table scan here / there); "
+                   f"(d) queue cap {LANE_FAULT_QUEUE_CAP} (the "
+                   f"benchmark's 16 escalates once faults hold the "
+                   f"throttle on); (e) phase 8(e)'s {LOOP_TOTAL} "
+                   f"statements, quanta of 32 pages; read bursts of "
+                   f"{LOOP_BATCH}"))
+    return launches
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -2002,17 +2251,18 @@ def main(argv) -> int:
     memory("sharded path (phase 7)")
     loop = phase_closed_loop(torch, bfa, initial, profile)  # own peak
     base = phase_baselines(torch, bfa, initial)  # own peak
+    lane = phase_build_lane(torch, bfa, initial)  # own peak
     del initial
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
-              phase8=loop, phase9=base))
+              phase8=loop, phase9=base, phase10=lane))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
         dict(name="K1 batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:163",
-             launches=k1_launches + loop["K1"] + base["K1"],
+             launches=k1_launches + loop["K1"] + base["K1"] + lane["K1"],
              max_abs_err=max(kr[("K1", b)]["max_abs_err"]
                              for b in (1, 8, 32)),
              ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
@@ -2028,7 +2278,8 @@ def main(argv) -> int:
         dict(name="K3 sharded_batched_filter_agg_masked", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
-             launches=k3_launches + k3_sharded + loop["K3"] + base["K3"],
+             launches=(k3_launches + k3_sharded + loop["K3"] + base["K3"]
+                       + lane["K3"]),
              max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
@@ -2036,7 +2287,7 @@ def main(argv) -> int:
         dict(name="K4 sharded_batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:308",
-             launches=k4_launches + loop["K4"] + base["K4"],
+             launches=k4_launches + loop["K4"] + base["K4"] + lane["K4"],
              max_abs_err=k4["max_abs_err"],
              ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],

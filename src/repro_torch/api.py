@@ -50,15 +50,30 @@ from repro_torch.core.table import (
     unshard_table,
 )
 from repro_torch.core.tuner import PredictiveTuner, TunerConfig, make_dl_tuner
+from repro_torch.faults import (
+    ClusterUnavailable,
+    FaultError,
+    FaultInjector,
+    FaultSchedule,
+    ReplicaOutage,
+    ReplicaUnavailable,
+    chaos_schedule,
+    staggered_outages,
+)
+from repro_torch.serving.slo import SloReport
 
 __all__ = [
     "TUNING_FREQ_MS",
     "AdaptiveTuner",
+    "ClusterUnavailable",
     "Database",
     "DisabledTuner",
     "ExecOptions",
     "ExecStats",
+    "FaultError",
+    "FaultInjector",
     "FaultOptions",
+    "FaultSchedule",
     "HolisticTuner",
     "IndexDescriptor",
     "OnlineTuner",
@@ -67,11 +82,14 @@ __all__ = [
     "Query",
     "QueryGen",
     "ReplicaOptions",
+    "ReplicaOutage",
+    "ReplicaUnavailable",
     "RunConfig",
     "RunResult",
     "ServingOptions",
     "ShardedIndex",
     "ShardedTable",
+    "SloReport",
     "SmixTuner",
     "Table",
     "TunerConfig",
@@ -79,6 +97,7 @@ __all__ = [
     "TuningOptions",
     "Workload",
     "affinity_workload",
+    "chaos_schedule",
     "eligible_global_pages",
     "hybrid_workload",
     "make_dl_tuner",
@@ -88,5 +107,6 @@ __all__ = [
     "shard_table",
     "shifting_workload",
     "stack_shards",
+    "staggered_outages",
     "unshard_table",
 ]

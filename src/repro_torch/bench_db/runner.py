@@ -17,30 +17,51 @@ which case the work rides on idle resources for free.
 Phase boundaries can optionally drop every ad-hoc index ("diurnal"
 mode, Figure 6) -- tuner *models* survive drops.
 
+The asynchronous build lane (``async_tuning`` "deterministic" and
+"overlap", ``core.build_service.BuildService``), the open-loop serving
+driver (``arrival_stream`` / ``burst_deadline_ms``: completion minus
+arrival, the SLO report, the build throttle and load shedding) and
+fault schedules on one engine (transient scan errors, stragglers,
+build-quantum failures with retry, backoff and quarantine) follow the
+reference's code paths.
+
 Every field of ``RunResult`` but ``wall_s`` (a host clock around the
-run) and ``execution_tiers`` (which tier served each query) is a
+run), ``execution_tiers`` (which tier served each query) and
+``build_pages_per_ms`` (the build lane's measured throughput) is a
 function of the simulated clock and the query results, so a run is
 deterministic and equals the reference's run field for field, for
-the predictive tuner and for every baseline of ``core.baselines``
-(online, adaptive, SMIX, holistic, DIS).  The options whose slices are
-not ported yet -- replicas, fault schedules,
-the open loop (arrival streams, burst deadlines), the asynchronous
-build lane and the device mesh -- raise ``NotImplementedError`` at the
-top of ``run_workload``, before any state changes.
+the predictive tuner and for every baseline of ``core.baselines``.
+The reference's wall-clock inputs stay so here: the overlap lane's
+escalated drains once its queue passes ``build_queue_cap``
+(``build_escalations`` counts them) and ``adaptive_build_budget``; a
+run that must replay bit for bit has ``build_escalations == 0`` and
+leaves adaptive sizing off.  The options whose slices are not ported
+yet -- replicas and the device mesh -- raise ``NotImplementedError``
+at the top of ``run_workload``, before any state changes.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.bench_db.workloads import Workload
+from repro_torch.core.build_service import BuildService
 from repro_torch.core.executor import Database
+from repro_torch.faults import FaultInjector, FaultSchedule
+from repro_torch.serving.admission import (
+    backlog_depth,
+    make_arrivals,
+    next_burst,
+    recent_arrival_gap_ms,
+    slo_pressure,
+)
+from repro_torch.serving.slo import SloReport, compute_slo
 
 TUNING_FREQ_MS = {"fast": 100.0, "mod": 1000.0, "slow": 10000.0, "dis": None}
 
@@ -71,10 +92,19 @@ class TuningOptions:
     idle_at_phase_start_ms: float = 0.0          # throttled client window
     drop_indexes_at_phase_end: bool = False      # diurnal mode
     max_cycles_per_gap: int = 50                 # clamp catch-up storms
-    # Asynchronous build lane (not ported yet): None keeps the
-    # serialized schedule; 'deterministic' and 'overlap' raise.
-    async_tuning: Optional[str] = None
-    build_quantum_pages: int = 8
+    # Async tuning pipeline (core.build_service).  None keeps the
+    # serialized schedule (tuning_cycle at burst boundaries).
+    # "deterministic" routes every cycle through the decide/apply
+    # split but drains all build quanta at the boundary: results and
+    # accounting equal serialized, for any shard count.  "overlap"
+    # drains quanta on a concurrent build lane between the burst's
+    # batched dispatches: build work no longer blocks queries (it is
+    # recorded as tuner_overlapped_ms), undrained quanta carry over to
+    # the next burst.
+    async_tuning: Optional[str] = None  # None | 'deterministic' | 'overlap'
+    build_quantum_pages: int = 8        # overlap-mode slice size
+    # Overlap-mode backpressure: queue depth above which the build
+    # lane escalates drains (a wall-clock-shaped schedule).
     build_queue_cap: int = 64
     # Shard-aware tuning: scans record per-shard page-access counters,
     # the tuner forecasts per-shard heat and sizes per-shard build
@@ -89,31 +119,51 @@ class TuningOptions:
     crack_on_scan: bool = False
     crack_pages_per_scan: int = 8
     index_decay: bool = False
-    # Overlap-mode cycle sizing (not ported yet, with the build lane).
+    # Adaptive cycle sizing (overlap mode only): resize
+    # TunerConfig.pages_per_cycle each cycle from the build lane's
+    # measured throughput (BuildService.suggested_pages_per_cycle).
+    # It reads the wall clock, so a run with it on does not replay.
     adaptive_build_budget: bool = False
 
 
 @dataclass
 class ServingOptions:
-    """Open-loop serving front end and SLO machinery.
+    """Open-loop serving front end (repro_torch.serving) + SLO machinery.
 
-    Only ``arrival_ms`` (a closed-loop client cadence: a query faster
-    than it leaves an idle gap that absorbs tuning work) is ported;
-    an ``arrival_stream`` or a ``burst_deadline_ms`` selects the open
-    loop, which raises.
+    Setting ``arrival_stream`` (or a burst deadline) switches
+    run_workload into the open-loop driver: requests arrive on a
+    seeded schedule ("uniform" | "poisson" | "bursty", mean
+    inter-arrival = arrival_ms), read bursts close on read_batch_size
+    OR burst_deadline_ms past the stage opening (whichever fires
+    first), and recorded latency is completion minus ARRIVAL --
+    queueing delay included.  With both unset, ``arrival_ms`` is a
+    closed-loop client cadence: a query faster than it leaves an idle
+    gap that absorbs tuning work.  idle_at_phase_start_ms is ignored
+    open-loop: idleness comes from the stream.
     """
 
-    arrival_ms: float = 0.0  # closed-loop client cadence (0 = none)
+    arrival_ms: float = 0.0
     arrival_stream: Optional[str] = None
     arrival_seed: int = 0
+    # Bursty stream shape: ON-state rate inflation, ON-state duty
+    # cycle, and tenants > 1 superimposes that many independently
+    # seeded streams (the aggregate keeps the mean).
     arrival_peak_ratio: float = 8.0
     arrival_on_frac: float = 0.125
     arrival_tenants: int = 1
     burst_deadline_ms: Optional[float] = None
+    # Per-query latency SLO: feeds the deadline-miss report and, with
+    # ``build_throttle``, the load-aware throttle -- build drains are
+    # deferred while the backlog's estimated wait exceeds
+    # ``slo_headroom`` of the SLO.  ``load_shed_tuning`` also sheds
+    # the lowest-utility queued quanta down to build_queue_cap under
+    # pressure (degrade tuning, never queries).
     slo_ms: Optional[float] = None
     slo_headroom: float = 0.5
     build_throttle: bool = False
     load_shed_tuning: bool = False
+    # Anti-starvation bound: after this many consecutive deferred
+    # drain boundaries the next drain is forced even under pressure.
     build_throttle_patience: int = 3
 
 
@@ -127,10 +177,18 @@ class ReplicaOptions:
 
 @dataclass
 class FaultOptions:
-    """Deterministic fault injection (not ported yet): a
-    ``fault_schedule`` raises."""
+    """Deterministic fault injection (repro_torch.faults) + recovery.
 
-    fault_schedule: Optional[object] = None
+    ``fault_schedule`` attaches a seeded ``FaultSchedule`` to the run:
+    transient scan errors, straggler dispatch latency and build-quantum
+    failures (outages need a replica tier, which is not ported: a
+    schedule with outages raises ``ValueError``).  ``fault_recovery``
+    on retries failed quanta with exponential backoff
+    (``fault_build_backoff_ms * 2**attempt``, quarantine after
+    ``fault_build_max_attempts`` failures); off discards them.  None
+    injects nothing."""
+
+    fault_schedule: Optional[FaultSchedule] = None
     fault_recovery: bool = True
     fault_build_max_attempts: int = 4
     fault_build_backoff_ms: float = 4.0
@@ -233,21 +291,28 @@ class RunResult:
     wall_s: float = 0.0
     index_counts: List[int] = field(default_factory=list)
     built_fraction: List[float] = field(default_factory=list)
-    # The fields below stay at their defaults in the closed loop
-    # without a build lane, serving, replicas or faults; they keep the
-    # reference's record shape.
+    # Build-lane telemetry: measured drain throughput (wall clock) and
+    # how often backpressure escalated the drain frequency.
     build_pages_per_ms: float = 0.0
     build_escalations: int = 0
+    # adaptive cycle sizing: pages_per_cycle after the final resize
     build_pages_per_cycle: int = 0
-    slo_report: Optional[object] = None
+    # Open-loop telemetry: latencies_ms are completion-minus-arrival
+    # there, and the SLO report slices them per phase.
+    slo_report: Optional[SloReport] = None
     deadline_miss_rate: float = 0.0
-    build_throttle_deferrals: int = 0
-    build_shed_quanta: int = 0
+    build_throttle_deferrals: int = 0   # drains deferred under pressure
+    build_shed_quanta: int = 0          # quanta dropped by load shedding
     # execution tier -> queries served by it (ScanEngine.last_tier).
     execution_tiers: Dict[str, int] = field(default_factory=dict)
+    # Replica routing (the replica tier is not ported: stays empty).
     replica_routing: List[int] = field(default_factory=list)
-    # Per-statement (agg_sum, count, rows_modified) in served order.
+    # Per-statement (agg_sum, count, rows_modified) in served order:
+    # a fault schedule with recovery on reproduces the fault-free
+    # run's list (latency may shift, results never).
     results: List[Tuple[int, int, int]] = field(default_factory=list)
+    # Fault telemetry: served fraction of offered statements, outage
+    # time (replica tier only) and the injector's event counters.
     dropped_queries: int = 0
     availability: float = 1.0
     fault_downtime_ms: float = 0.0
@@ -304,19 +369,13 @@ class RunResult:
 
 
 def _check_ported(cfg: RunConfig) -> None:
-    """Raise for an option whose slice is not ported yet."""
+    """Raise for an option whose slice is not ported yet, and for an
+    unknown async mode."""
+    if cfg.async_tuning not in (None, "deterministic", "overlap"):
+        raise ValueError(f"async_tuning: {cfg.async_tuning!r}")
     missing = []
     if cfg.n_replicas > 1:
         missing.append("replicas (n_replicas > 1): core.replica")
-    if cfg.fault_schedule is not None:
-        missing.append("fault schedules: faults/")
-    if cfg.arrival_stream is not None or cfg.burst_deadline_ms is not None:
-        missing.append("the open loop (arrival_stream / burst_deadline_ms): "
-                       "serving/")
-    if cfg.async_tuning in ("deterministic", "overlap"):
-        missing.append(f"async_tuning={cfg.async_tuning!r}: BuildService")
-    elif cfg.async_tuning is not None:
-        raise ValueError(f"async_tuning: {cfg.async_tuning!r}")
     if cfg.mesh or cfg.mesh_query_axis > 1:
         missing.append("the device mesh (mesh=True / mesh_query_axis > 1): "
                        "parallel/mesh")
@@ -328,10 +387,106 @@ def _check_ported(cfg: RunConfig) -> None:
 def run_workload(
     db: Database, tuner, workload: Workload, cfg: RunConfig
 ) -> RunResult:
-    """Drive ``tuner`` over ``workload`` on the simulated clock (the
-    closed-loop replay driver), on the database's device."""
+    """Drive ``tuner`` over ``workload`` on the simulated clock, on the
+    database's device: the closed-loop replay driver, or (when an
+    arrival stream / burst deadline is configured) the open-loop
+    serving driver.  A fault schedule attaches a ``FaultInjector`` to
+    the database first; its counters land in the result."""
     _check_ported(cfg)
-    return _run_closed_loop(db, tuner, workload, cfg)
+    injector: Optional[FaultInjector] = None
+    schedule = cfg.faults.fault_schedule
+    if schedule is not None:
+        if schedule.outages:
+            raise ValueError(
+                "FaultSchedule.outages require a replica tier "
+                "(ReplicaOptions.n_replicas > 1): a single engine has "
+                "nothing to fail over to"
+            )
+        injector = FaultInjector(
+            schedule, recovery=cfg.faults.fault_recovery
+        )
+        db.fault_injector = injector
+    if cfg.arrival_stream is not None or cfg.burst_deadline_ms is not None:
+        res = _run_open_loop(db, tuner, workload, cfg)
+    else:
+        res = _run_closed_loop(db, tuner, workload, cfg)
+    if injector is not None:
+        res.fault_scan_retries = injector.scan_retries
+        res.fault_stragglers = injector.straggler_events
+        res.fault_build_failures = injector.build_failures
+        offered = len(res.latencies_ms) + res.dropped_queries
+        res.availability = (
+            len(res.latencies_ms) / offered if offered else 1.0
+        )
+        if res.slo_report is not None:
+            res.slo_report = replace(
+                res.slo_report,
+                availability=res.availability,
+                downtime_ms=res.fault_downtime_ms,
+                dropped=res.dropped_queries,
+            )
+    return res
+
+
+def _prepare(db: Database, tuner, cfg: RunConfig):
+    """Shared set-up of both drivers: the layout, the tuning flags and
+    the build service (None without an async mode)."""
+    if cfg.num_shards != db.num_shards:
+        db.reshard(cfg.num_shards)
+    db.shard_aware_tuning = bool(cfg.shard_aware_tuning)
+    db.crack_on_scan = bool(cfg.crack_on_scan)
+    db.crack_pages_per_scan = int(cfg.crack_pages_per_scan)
+    db.index_decay = bool(cfg.index_decay)
+    if cfg.async_tuning is None:
+        return None
+    overlap = cfg.async_tuning == "overlap"
+    # Deterministic mode keeps the serialized quantum slices; overlap
+    # sub-slices them so the engine can drain fine-grained quanta
+    # between burst dispatches.
+    return BuildService(
+        db,
+        tuner,
+        quantum_pages=cfg.build_quantum_pages if overlap else None,
+        max_queue_depth=cfg.build_queue_cap if overlap else None,
+        injector=db.fault_injector,
+        max_attempts=cfg.fault_build_max_attempts,
+        backoff_ms=cfg.fault_build_backoff_ms,
+    )
+
+
+def _overlap_drainer(service: BuildService, res: RunResult,
+                     cfg: RunConfig):
+    """One drain opportunity on the concurrent build lane (the
+    engine's between-dispatch hook): applies ``drain_burst_size()``
+    quanta; their work is recorded but never enters the blocking path.
+    Returns the drained work-ms."""
+
+    def overlap_quantum() -> float:
+        total_ms = 0.0
+        for _ in range(service.drain_burst_size()):
+            units = service.apply_next()
+            if units <= 0.0:
+                continue
+            u_ms = units * cfg.time_per_unit_ms
+            res.tuner_work_units += units
+            res.tuner_overlapped_ms += u_ms
+            total_ms += u_ms
+        return total_ms
+
+    return overlap_quantum
+
+
+def _record_service(res: RunResult, service: Optional[BuildService]) -> None:
+    if service is not None:
+        res.build_pages_per_ms = service.pages_per_ms
+        res.build_escalations = service.escalations
+        res.fault_quarantined_builds = len(service.quarantined)
+
+
+def _finish_wall(db: Database, res: RunResult, t_start: float) -> None:
+    if db.device.type == "cuda":
+        torch.cuda.synchronize(db.device)
+    res.wall_s = time.perf_counter() - t_start
 
 
 def _run_closed_loop(
@@ -343,12 +498,8 @@ def _run_closed_loop(
     (arrival gaps + explicit phase-start throttle windows); any
     overflow is non-preemptible and BLOCKS the next query.
     """
-    if cfg.num_shards != db.num_shards:
-        db.reshard(cfg.num_shards)
-    db.shard_aware_tuning = bool(cfg.shard_aware_tuning)
-    db.crack_on_scan = bool(cfg.crack_on_scan)
-    db.crack_pages_per_scan = int(cfg.crack_pages_per_scan)
-    db.index_decay = bool(cfg.index_decay)
+    service = _prepare(db, tuner, cfg)
+    overlap = cfg.async_tuning == "overlap"
 
     res = RunResult()
     next_cycle_ms = (
@@ -361,6 +512,36 @@ def _run_closed_loop(
     blocking_ms = 0.0   # carried into the next query's latency
     prev_phase = 0
 
+    # Adaptive cycle sizing: only the overlap lane measures real drain
+    # throughput, and only its schedule may depend on the wall clock.
+    adaptive = overlap and cfg.adaptive_build_budget and hasattr(tuner, "cfg")
+
+    def resize_cycle_budget() -> None:
+        """Feed the lane's measured throughput (pages/ms) back into
+        TunerConfig.pages_per_cycle, clamped to [1,
+        max_build_pages_per_cycle]."""
+        pages = service.suggested_pages_per_cycle()
+        if pages is None:
+            return
+        cap = tuner.cfg.max_build_pages_per_cycle
+        tuner.cfg.pages_per_cycle = min(max(pages, 1), cap)
+        res.build_pages_per_cycle = tuner.cfg.pages_per_cycle
+
+    def run_cycle(idle: bool) -> float:
+        """One due tuning cycle's *synchronous* work units."""
+        if service is None:
+            return tuner.tuning_cycle(idle=idle)
+        if cfg.async_tuning == "deterministic":
+            # Decide, then drain the whole queue at the boundary: the
+            # serialized schedule through the split pipeline.
+            return service.decide(idle=idle) + service.drain()
+        if adaptive:
+            resize_cycle_budget()
+        return service.decide(idle=idle)  # overlap: quanta drain in-burst
+
+    overlap_quantum = (_overlap_drainer(service, res, cfg) if overlap
+                       else None)
+
     def run_due_cycles():
         nonlocal next_cycle_ms, idle_credit_ms, blocking_ms
         if cfg.tuning_interval_ms is None:
@@ -368,7 +549,7 @@ def _run_closed_loop(
         fired = 0
         while db.clock_ms >= next_cycle_ms and fired < cfg.max_cycles_per_gap:
             idle = (db.clock_ms < idle_until_ms) or idle_credit_ms > 0.0
-            work = tuner.tuning_cycle(idle=idle)
+            work = run_cycle(idle)
             work_ms = work * cfg.time_per_unit_ms
             res.tuner_work_units += work
             absorbed = min(idle_credit_ms, work_ms)
@@ -382,6 +563,11 @@ def _run_closed_loop(
         if db.clock_ms >= next_cycle_ms:  # drop missed slots
             missed = (db.clock_ms - next_cycle_ms) // cfg.tuning_interval_ms
             next_cycle_ms += (int(missed) + 1) * cfg.tuning_interval_ms
+        if overlap:
+            # Idle windows feed the concurrent build lane too: drain
+            # carryover quanta against the idle credit.
+            while idle_credit_ms > 0.0 and service.pending():
+                idle_credit_ms = max(idle_credit_ms - overlap_quantum(), 0.0)
 
     def account(phase, q, stats):
         """Per-query bookkeeping shared by the single and batch paths."""
@@ -430,37 +616,300 @@ def _run_closed_loop(
         staged.clear()
 
     t_start = time.perf_counter()
-    for phase, q in workload:
-        if phase != prev_phase:
-            flush_burst()
-            if cfg.drop_indexes_at_phase_end:
-                for name in list(db.indexes):
-                    db.drop_index(name)
-            idle_until_ms = db.clock_ms + cfg.idle_at_phase_start_ms
-            idle_credit_ms += cfg.idle_at_phase_start_ms
-            if cfg.idle_at_phase_start_ms > 0:
-                # traverse the idle window so due cycles fire inside
-                end = idle_until_ms
-                while db.clock_ms < end and cfg.tuning_interval_ms:
-                    db.clock_ms = min(end, max(next_cycle_ms, db.clock_ms))
-                    run_due_cycles()
-                    if next_cycle_ms > end:
-                        break
-                db.clock_ms = max(db.clock_ms, end)
-            prev_phase = phase
-
-        if batch_n > 1 and q.kind == "scan" and q.join_table is None:
-            staged.append((phase, q))
-            if len(staged) >= batch_n:
+    if overlap:
+        db.engine.after_dispatch = overlap_quantum
+    try:
+        for phase, q in workload:
+            if phase != prev_phase:
                 flush_burst()
-            continue
+                if cfg.drop_indexes_at_phase_end:
+                    for name in list(db.indexes):
+                        db.drop_index(name)
+                idle_until_ms = db.clock_ms + cfg.idle_at_phase_start_ms
+                idle_credit_ms += cfg.idle_at_phase_start_ms
+                if cfg.idle_at_phase_start_ms > 0:
+                    # traverse the idle window so due cycles fire inside
+                    end = idle_until_ms
+                    while db.clock_ms < end and cfg.tuning_interval_ms:
+                        db.clock_ms = min(end, max(next_cycle_ms,
+                                                   db.clock_ms))
+                        run_due_cycles()
+                        if next_cycle_ms > end:
+                            break
+                    db.clock_ms = max(db.clock_ms, end)
+                prev_phase = phase
 
+            if batch_n > 1 and q.kind == "scan" and q.join_table is None:
+                staged.append((phase, q))
+                if len(staged) >= batch_n:
+                    flush_burst()
+                continue
+
+            flush_burst()
+            run_due_cycles()
+            stats = db.execute(q)
+            account(phase, q, stats)
         flush_burst()
-        run_due_cycles()
-        stats = db.execute(q)
-        account(phase, q, stats)
-    flush_burst()
-    if db.device.type == "cuda":
-        torch.cuda.synchronize(db.device)
-    res.wall_s = time.perf_counter() - t_start
+    finally:
+        if overlap:
+            db.engine.after_dispatch = None
+    _record_service(res, service)
+    _finish_wall(db, res, t_start)
+    return res
+
+
+def _run_open_loop(
+    db: Database, tuner, workload: Workload, cfg: RunConfig
+) -> RunResult:
+    """Open-loop serving driver (arrival-stream mode).
+
+    Requests arrive on a seeded schedule (``serving.admission``).  The
+    admission layer forms read bursts dynamically -- close on
+    ``read_batch_size`` OR ``burst_deadline_ms`` past the stage
+    opening; mutations and phase changes flush the stage as in the
+    closed loop -- and each burst goes through
+    ``Database.execute_batch``.  Recorded latency is completion minus
+    ARRIVAL: charged tuning work advances the clock and so delays
+    every queued request.
+
+    Graceful degradation: with ``build_throttle`` the deterministic
+    lane's boundary drains shrink to the urgent share while the
+    backlog's estimated wait exceeds ``slo_headroom`` of the SLO (the
+    patience bound forces a full drain after too many deferrals); in
+    overlap mode the concurrent lane is paused instead.
+    ``load_shed_tuning`` drops the lowest-utility queued quanta down
+    to ``build_queue_cap`` under pressure.  Queries are never dropped.
+    """
+    service = _prepare(db, tuner, cfg)
+    overlap = cfg.async_tuning == "overlap"
+
+    items = list(workload)
+    n = len(items)
+    arrivals = db.clock_ms + make_arrivals(
+        cfg.arrival_stream or "uniform",
+        n,
+        cfg.arrival_ms,
+        seed=cfg.arrival_seed,
+        peak_ratio=cfg.arrival_peak_ratio,
+        on_frac=cfg.arrival_on_frac,
+        tenants=cfg.arrival_tenants,
+    )
+    batch_n = max(int(cfg.read_batch_size), 1)
+    batchable = np.array(
+        [
+            q.kind == "scan" and q.join_table is None and batch_n > 1
+            for _, q in items
+        ],
+        bool,
+    )
+    phase_arr = np.array([p for p, _ in items], np.int64)
+
+    res = RunResult()
+    next_cycle_ms = (
+        db.clock_ms + cfg.tuning_interval_ms
+        if cfg.tuning_interval_ms
+        else float("inf")
+    )
+    idle_credit_ms = 0.0
+    served = 0                 # stream position: queries dispatched
+    staged_end = 0             # end of the burst currently being formed
+    ewma_service_ms = 0.0      # measured per-query service latency
+    defer_streak = 0           # consecutive throttled drain boundaries
+    prev_phase = 0
+
+    def pressured() -> bool:
+        # Overload = arrived requests that will STILL be queued after
+        # the staged burst dispatches (one batch in flight is the
+        # steady state, not a backlog).
+        depth = backlog_depth(arrivals, max(served, staged_end), db.clock_ms)
+        return slo_pressure(depth, ewma_service_ms, cfg.slo_ms,
+                            cfg.slo_headroom)
+
+    def defer_ok() -> bool:
+        # Deferring build work is safe only when the backlog is
+        # transient: the measured service time keeps up with the
+        # measured arrival rate.  Underwater, the stale physical
+        # design IS the problem -- build through the storm.
+        gap = recent_arrival_gap_ms(arrivals, db.clock_ms)
+        return ewma_service_ms <= gap
+
+    def shed_if_over_cap() -> None:
+        if cfg.load_shed_tuning and service.pending() > cfg.build_queue_cap:
+            res.build_shed_quanta += service.shed_lowest_utility(
+                cfg.build_queue_cap
+            )
+
+    def run_cycle(idle: bool) -> float:
+        nonlocal defer_streak
+        if service is None:
+            return tuner.tuning_cycle(idle=idle)
+        work = service.decide(idle=idle)
+        if overlap:
+            return work        # quanta drain on the concurrent lane
+        # Deterministic lane: under backlog pressure only the URGENT
+        # share drains at the boundary (the hot index a storm is
+        # full-scanning builds through it); speculative quanta wait
+        # for an idle gap.  The patience bound forces a full drain
+        # after too many deferred boundaries, and an unsustainable
+        # storm sheds the lowest-utility quanta past the cap.
+        if (
+            cfg.build_throttle
+            and service.pending() > 0
+            and pressured()
+            and defer_streak < cfg.build_throttle_patience
+        ):
+            defer_streak += 1
+            res.build_throttle_deferrals += 1
+            work += service.drain_urgent()
+            if not defer_ok():
+                shed_if_over_cap()
+            return work
+        defer_streak = 0
+        return work + service.drain()
+
+    overlap_quantum = (_overlap_drainer(service, res, cfg) if overlap
+                       else None)
+
+    def run_due_cycles() -> None:
+        nonlocal next_cycle_ms, idle_credit_ms
+        if cfg.tuning_interval_ms is None:
+            return
+        fired = 0
+        while db.clock_ms >= next_cycle_ms and fired < cfg.max_cycles_per_gap:
+            work = run_cycle(idle_credit_ms > 0.0)
+            work_ms = work * cfg.time_per_unit_ms
+            res.tuner_work_units += work
+            absorbed = min(idle_credit_ms, work_ms)
+            idle_credit_ms -= absorbed
+            charged = work_ms - absorbed
+            res.tuner_charged_ms += charged
+            db.clock_ms += max(charged, 1e-9)
+            next_cycle_ms += cfg.tuning_interval_ms
+            fired += 1
+        if db.clock_ms >= next_cycle_ms:  # drop missed slots
+            missed = (db.clock_ms - next_cycle_ms) // cfg.tuning_interval_ms
+            next_cycle_ms += (int(missed) + 1) * cfg.tuning_interval_ms
+        if overlap:
+            # idle gaps feed the concurrent lane (carryover quanta
+            # ride the credit) -- but not while the throttle holds it
+            while idle_credit_ms > 0.0 and service.pending():
+                if cfg.build_throttle and pressured():
+                    break
+                drained = overlap_quantum()
+                if drained <= 0.0:
+                    break
+                idle_credit_ms = max(idle_credit_ms - drained, 0.0)
+
+    def advance_to(target_ms: float) -> None:
+        """Idle the server up to ``target_ms`` (waiting for arrivals or
+        the burst timer): the gap accrues idle credit and due tuning
+        cycles fire inside it."""
+        nonlocal idle_credit_ms
+        gap = target_ms - db.clock_ms
+        if gap <= 0.0:
+            return
+        idle_credit_ms += gap
+        if cfg.tuning_interval_ms is not None:
+            while next_cycle_ms <= target_ms:
+                db.clock_ms = max(db.clock_ms, next_cycle_ms)
+                run_due_cycles()
+                if db.clock_ms >= target_ms:
+                    break
+        db.clock_ms = max(db.clock_ms, target_ms)
+
+    def account_open(ph: int, stats, arrival: float,
+                     completion: float) -> None:
+        lat = completion - arrival
+        res.latencies_ms.append(lat)
+        res.phases.append(ph)
+        res.cumulative_ms += lat
+        res.results.append((stats.agg_sum, stats.count, stats.rows_modified))
+        if stats.tier:
+            res.execution_tiers[stats.tier] = (
+                res.execution_tiers.get(stats.tier, 0) + 1
+            )
+        res.index_counts.append(len(db.indexes))
+        fracs = [
+            b.built_fraction(db.tables[b.desc.table])
+            for b in db.indexes.values()
+        ]
+        res.built_fraction.append(float(np.mean(fracs)) if fracs else 0.0)
+
+    t_start = time.perf_counter()
+    if overlap:
+        db.engine.after_dispatch = overlap_quantum
+    try:
+        while served < n:
+            start = served
+            ph = int(phase_arr[start])
+            if ph != prev_phase:
+                if cfg.drop_indexes_at_phase_end:
+                    for name in list(db.indexes):
+                        db.drop_index(name)
+                prev_phase = ph
+            d = next_burst(
+                arrivals,
+                batchable,
+                phase_arr,
+                start,
+                db.clock_ms,
+                batch_n,
+                cfg.burst_deadline_ms,
+            )
+            staged_end = d.end
+            advance_to(d.dispatch_at)
+            run_due_cycles()
+            # Idle credit expires at dispatch: past idle time cannot
+            # absorb future work, so cycles that fire during a backlog
+            # are CHARGED -- the pressure the throttle relieves.
+            idle_credit_ms = 0.0
+            if overlap and cfg.build_throttle:
+                # The deterministic lane's patience bound, for the
+                # concurrent lane's pause.
+                was_paused = service.paused
+                service.paused = (
+                    pressured()
+                    and defer_ok()
+                    and defer_streak < cfg.build_throttle_patience
+                )
+                if service.paused:
+                    defer_streak += 1
+                    if not was_paused:
+                        res.build_throttle_deferrals += 1
+                    shed_if_over_cap()
+                else:
+                    defer_streak = 0
+            burst = items[start:d.end]
+            base = db.clock_ms
+            if len(burst) == 1 and not batchable[start]:
+                stats_list = [db.execute(burst[0][1])]
+            else:
+                stats_list = db.execute_batch(
+                    [q for _, q in burst], use_kernel=cfg.use_kernel
+                )
+            cum = 0.0
+            for k, ((bph, q), stats) in enumerate(zip(burst, stats_list)):
+                extra_units = tuner.on_query(q, stats)
+                extra_ms = extra_units * cfg.time_per_unit_ms
+                db.clock_ms += extra_ms
+                service_ms = stats.latency_ms + extra_ms
+                cum += service_ms
+                a = 0.25
+                ewma_service_ms = (
+                    service_ms
+                    if ewma_service_ms == 0.0
+                    else (1.0 - a) * ewma_service_ms + a * service_ms
+                )
+                account_open(bph, stats, float(arrivals[start + k]),
+                             base + cum)
+            served = d.end
+    finally:
+        if overlap:
+            db.engine.after_dispatch = None
+    _record_service(res, service)
+    if service is not None:
+        res.build_shed_quanta = service.shed_quanta
+    res.slo_report = compute_slo(res.latencies_ms, res.phases, cfg.slo_ms)
+    res.deadline_miss_rate = res.slo_report.overall.miss_rate
+    _finish_wall(db, res, t_start)
     return res

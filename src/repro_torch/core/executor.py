@@ -33,7 +33,13 @@ UPDATE drops its coverage claims.  So are HIGH-S equi-joins
 (``_exec_join``): the pair count is taken on the table's device from
 the outer scan's contrib planes and the sorted live inner values.
 
-Not ported yet (it raises ``NotImplementedError``): fault injection.
+Fault injection is ported for one engine: with a ``fault_injector``
+(``repro_torch.faults.FaultInjector``) every single scan and every
+batched group dispatch draws once, after its latency is priced, for
+transient retries (each pays the dispatch's latency again) and
+straggler time (a group shares it evenly over its members).  The
+draws are counter-based, so they fall exactly where the reference's
+do; results never change, only latency.
 """
 
 from __future__ import annotations
@@ -174,8 +180,9 @@ class Database:
         # shard=)``): their hybrid scans stitch per shard.
         self.shard_aware_tuning: bool = False
         self.pershard_built: set = set()
-        # Fault injection is not ported yet; setting an injector makes
-        # the next statement raise.
+        # Fault injection (repro_torch.faults.FaultInjector): consulted
+        # once per scan dispatch for transient retries and straggler
+        # latency.  None (the default) skips every consult.
         self.fault_injector = None
         self._round_robin_cache: Dict[str, bool] = {}
         self._zone_maps: Dict[tuple, tuple] = {}
@@ -199,10 +206,6 @@ class Database:
     @property
     def device(self) -> torch.device:
         return next(iter(self.tables.values())).device
-
-    def _check_options(self) -> None:
-        if self.fault_injector is not None:
-            raise NotImplementedError("fault injection is not ported yet")
 
     def reshard(self, num_shards: int) -> None:
         """Re-partition every table round-robin over ``num_shards``.
@@ -385,7 +388,6 @@ class Database:
         return stats
 
     def _exec_scan(self, q: Query) -> ExecStats:
-        self._check_options()
         t = self.tables[q.table]
         layout = self.layouts[q.table]
         plan = self.planner.plan_scan(q)
@@ -422,9 +424,17 @@ class Database:
             count, join_cost, join_used = self._exec_join(q, r)
             cost += join_cost
             used = used or join_used
+        lat_ms = cost * self.time_per_unit_ms
+        if self.fault_injector is not None:
+            # Transient errors re-issue the dispatch (its latency is
+            # paid again per retry); stragglers add flat extra time.
+            # Guarded so a fault-free draw leaves lat_ms untouched.
+            retries, extra_ms = self.fault_injector.scan_fault()
+            if retries or extra_ms:
+                lat_ms += retries * lat_ms + extra_ms
         return ExecStats(
             cost_units=cost,
-            latency_ms=cost * self.time_per_unit_ms,
+            latency_ms=lat_ms,
             wall_s=wall,
             used_index=used,
             agg_sum=agg_sum,
@@ -553,7 +563,6 @@ class Database:
         self, pending, out, observe: bool, use_kernel: bool
     ) -> None:
         """Plan, group and execute one burst of batchable scans."""
-        self._check_options()
         self.planner.begin_snapshot()
         try:
             groups: Dict[tuple, list] = {}
@@ -565,6 +574,10 @@ class Database:
             ts = self.clock_ms_i32()
             # pos -> (sum, count, pages, entries, start_page, wall, tier)
             raw: Dict[int, tuple] = {}
+            # pos -> (retries, straggler-share ms).  One fault draw per
+            # GROUP dispatch (the dispatch is the fault domain); its
+            # straggler latency is shared evenly across members.
+            fault_by_pos: Dict[int, tuple] = {}
             for group_key, members in groups.items():
                 table_name, attrs, agg_attr, _path, _idx = group_key
                 t = self.tables[table_name]
@@ -592,8 +605,16 @@ class Database:
                 )
                 tier = self.engine.last_tier or ""
                 # Drain point between this group's dispatch and the
-                # next (outside the timed region).
+                # next, outside the timed region: ``_timed`` waits for
+                # the group's kernels before it reads the clock, so a
+                # quantum's work never lands in a group's wall time.
                 self.engine.dispatch_complete()
+                if self.fault_injector is not None:
+                    retries, extra_ms = self.fault_injector.scan_fault()
+                    if retries or extra_ms:
+                        share = extra_ms / len(members)
+                        for pos, _q, _plan in members:
+                            fault_by_pos[pos] = (retries, share)
                 rows = torch.stack(list(r)).cpu().tolist()
                 for k, (pos, _q, _plan) in enumerate(members):
                     raw[pos] = tuple(int(col[k]) for col in rows) + (
@@ -632,9 +653,13 @@ class Database:
             used = bi_q is not None
             if used:
                 bi_q.last_used_ms = self.clock_ms
+            lat_ms = cost * self.time_per_unit_ms
+            if pos in fault_by_pos:
+                retries, share = fault_by_pos[pos]
+                lat_ms += retries * lat_ms + share
             stats = ExecStats(
                 cost_units=cost,
-                latency_ms=cost * self.time_per_unit_ms,
+                latency_ms=lat_ms,
                 wall_s=wall,
                 used_index=used,
                 agg_sum=agg_sum,
@@ -705,7 +730,6 @@ class Database:
         return pairs, float(n_inner), False
 
     def _exec_update(self, q: Query) -> ExecStats:
-        self._check_options()
         t = self.tables[q.table]
         layout = self.layouts[q.table]
         (new_t, n_upd), wall = self._timed(
@@ -746,7 +770,6 @@ class Database:
         )
 
     def _exec_insert(self, q: Query) -> ExecStats:
-        self._check_options()
         t = self.tables[q.table]
         rows = np.asarray(q.rows, np.int32)
         new_t, wall = self._timed(

@@ -205,10 +205,23 @@ def test_unported_features_raise():
     db.shard_aware_tuning = True
     assert db.execute_batch([gen.low_s()])[0].shard_pages == ()
     P.PredictiveTuner(db).decide()
-    # Fault injection is not.
-    db.fault_injector = object()
-    with pytest.raises(NotImplementedError):
-        db.execute_batch([gen.low_s()])
+    # Fault injection is ported too (tests/test_torch_faults.py): one
+    # schedule prices the same retries and straggler time as in the
+    # reference, on single scans and on batched groups.
+    fdb, rfdb = P.Database(dict(src.tables)), R.Database(dict(rsrc.tables))
+    sched = dict(seed=3, scan_error_rate=0.5, straggler_rate=0.5)
+    fdb.fault_injector = P.FaultInjector(P.FaultSchedule(**sched))
+    rfdb.fault_injector = R.FaultInjector(R.FaultSchedule(**sched))
+    fgen, rfgen = P.QueryGen(src, seed=9), R.QueryGen(rsrc, seed=9)
+    for _ in range(3):
+        qs = [fgen.low_s(), fgen.mod_s()]
+        rqs = [rfgen.low_s(), rfgen.mod_s()]
+        assert [_stats(s) for s in fdb.execute_batch(qs + qs[:1])] == [
+            _stats(s) for s in rfdb.execute_batch(rqs + rqs[:1])]
+        assert _stats(fdb.execute(qs[1])) == _stats(rfdb.execute(rqs[1]))
+    assert fdb.clock_ms == rfdb.clock_ms
+    assert fdb.fault_injector.scan_retries == (
+        rfdb.fault_injector.scan_retries) > 0
 
 
 def test_zone_map_matches_reference():

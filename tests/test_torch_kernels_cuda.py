@@ -559,3 +559,86 @@ def test_cuda_adaptive_bursts_kernel_twin_equals_plain_twin(cuda,
         assert torch.equal(a.vbp.in_index, b.vbp.in_index)
     assert any(dbs[True].planner.plan_scan(q).path == "pure_vbp"
                for _, q in wl if q.kind == "scan")
+
+
+
+def _lane_twins(cuda, serving, num_shards=1, faults=None, **tuning):
+    """The async build lane on the card at the CPU tests' size (3,000
+    rows, pages of 128, 160 read_heavy queries in bursts of 6): a run
+    with ``use_kernel`` and one on the plain path, equal in every
+    RunResult field but wall_s, execution_tiers and build_pages_per_ms.
+    Returns the kernel run's result and its K1 / K3 / K4 launches."""
+    import dataclasses
+
+    from repro_torch import api as P
+
+    src = P.make_tuner_db(n_rows=3_000, page_size=128, device=cuda)
+    out, launches = {}, None
+    for use_kernel in (True, False):
+        tables = {k: t._replace(data=t.data.clone(),
+                                begin_ts=t.begin_ts.clone(),
+                                end_ts=t.end_ts.clone())
+                  for k, t in src.tables.items()}
+        tdb = P.TunerDB(tables=tables, quantiles=src.quantiles,
+                        n_rows=src.n_rows, rng=None)
+        gen = P.QueryGen(tdb, selectivity=0.01, seed=23)
+        wl = P.hybrid_workload(gen, "read_heavy", total=160, phase_len=40,
+                               seed=2)
+        db = P.Database(dict(tdb.tables))
+        cfg = P.RunConfig(
+            execution=P.ExecOptions(read_batch_size=6, num_shards=num_shards,
+                                    use_kernel=use_kernel),
+            tuning=P.TuningOptions(tuning_interval_ms=2.0, **tuning),
+            serving=P.ServingOptions(**serving),
+            faults=P.FaultOptions(
+                fault_schedule=None if faults is None
+                else P.FaultSchedule(**faults)))
+        counters = ("launches", "masked_launches", "sharded_launches")
+        before = [getattr(bfa, c) for c in counters]
+        out[use_kernel] = P.run_workload(db, P.make_dl_tuner(db, "predictive"),
+                                         wl, cfg)
+        launched = tuple(getattr(bfa, c) - b
+                         for c, b in zip(counters, before))
+        if use_kernel:
+            launches = launched
+        else:
+            assert launched == (0, 0, 0)
+    for f in dataclasses.fields(P.RunResult):
+        if f.name not in ("wall_s", "execution_tiers", "build_pages_per_ms"):
+            assert getattr(out[True], f.name) == getattr(out[False], f.name), (
+                f.name)
+    assert out[True].build_escalations == 0
+    return out[True], launches
+
+
+@pytest.mark.parametrize("num_shards,crack", [(1, False), (4, False),
+                                              (1, True)],
+                         ids=["K1", "K4", "K3-crack"])
+def test_cuda_overlap_lane_kernel_twin_equals_plain_twin(cuda, num_shards,
+                                                         crack):
+    """Overlap mode: quanta run between a burst's kernel groups on the
+    card while the groups scan the states pinned at burst start; the
+    kernel twin equals the plain twin in every simulated field."""
+    res, (k1, k3, k4) = _lane_twins(
+        cuda, {}, num_shards, async_tuning="overlap", crack_on_scan=crack)
+    assert res.tuner_overlapped_ms > 0.0 and res.tuner_charged_ms == 0.0
+    assert res.build_pages_per_ms > 0.0
+    assert (k4 if num_shards > 1 else k3 if crack else k1) > 0
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "overlap"])
+def test_cuda_open_loop_kernel_twin_equals_plain_twin(cuda, mode):
+    """The open loop (bursty arrivals, deadline bursts, the build
+    throttle) under every transient fault category, kernel twin against
+    plain twin on the card.  Retried quanta come back in clumps, so the
+    queue cap is set past the deepest queue: the lane's drains then
+    never escalate (an escalated drain's size reads the wall clock)."""
+    res, (k1, _, _) = _lane_twins(
+        cuda, dict(arrival_stream="bursty", arrival_ms=0.5, arrival_seed=7,
+                   slo_ms=2.0, burst_deadline_ms=0.5, build_throttle=True),
+        faults=dict(seed=7, scan_error_rate=0.15, straggler_rate=0.2,
+                    straggler_ms=0.3, build_fail_rate=0.3),
+        async_tuning=mode, build_queue_cap=512)
+    assert k1 > 0 and res.slo_report is not None
+    assert res.build_throttle_deferrals > 0
+    assert res.fault_scan_retries + res.fault_stragglers > 0

@@ -290,20 +290,13 @@ def test_tuning_beats_disabled_on_stable_read_workload():
 
 UNPORTED = [  # (group, field, value) of each option that raises
     ("replica", "n_replicas", 2),
-    ("faults", "fault_schedule", object()),
-    ("serving", "arrival_stream", "poisson"),
-    ("serving", "burst_deadline_ms", 5.0),
-    ("tuning", "async_tuning", "deterministic"),
-    ("tuning", "async_tuning", "overlap"),
     ("execution", "mesh", True),
     ("execution", "mesh_query_axis", 2),
 ]
 
 
 @pytest.mark.parametrize("group,name,value", UNPORTED,
-                         ids=["replicas", "faults", "arrival_stream",
-                              "burst_deadline", "deterministic", "overlap",
-                              "mesh", "mesh_query_axis"])
+                         ids=["replicas", "mesh", "mesh_query_axis"])
 def test_unported_option_raises_before_any_state_change(group, name, value):
     src = port_src()
     db = P.Database(dict(src.tables))

@@ -828,13 +828,25 @@ def test_burst_loop_with_tuning_on_4_shards():
 def test_shard_aware_tuning_and_faults_still_raise():
     """Shard-aware tuning is ported (tests/test_torch_shard_tuning.py):
     a scan on 4 shards reports its per-shard pages and a cycle runs.
-    Fault injection still raises."""
+    Fault injection is ported too (tests/test_torch_faults.py): on 4
+    shards one schedule prices the same retries and straggler time as
+    the reference's 4-shard database, single scans and batched groups."""
     pdb = P.Database(_port_tables(SRC.tables), num_shards=4)
     pdb.shard_aware_tuning = True
     got = pdb.execute_batch([_port_query(_scan(1, 1000))])[0]
     assert len(got.shard_pages) == 4 and sum(got.shard_pages) > 0
     P.PredictiveTuner(pdb).decide()
-    pdb.shard_aware_tuning = False
-    pdb.fault_injector = object()
-    with pytest.raises(NotImplementedError):
-        pdb.execute(_port_query(_scan(1, 1000)))
+    pdb = P.Database(_port_tables(SRC.tables), num_shards=4)
+    rdb = R.Database(dict(SRC.tables), num_shards=4)
+    sched = dict(seed=5, scan_error_rate=0.5, straggler_rate=0.5)
+    pdb.fault_injector = P.FaultInjector(P.FaultSchedule(**sched))
+    rdb.fault_injector = R.FaultInjector(R.FaultSchedule(**sched))
+    queries = [_scan(1 + 997 * k, 1000, attr=1 + k % 2) for k in range(5)]
+    for q in queries:
+        assert _stats(pdb.execute(_port_query(q))) == _stats(rdb.execute(q))
+    assert [_stats(s) for s in pdb.execute_batch(
+        [_port_query(q) for q in queries])] == [
+        _stats(s) for s in rdb.execute_batch(queries)]
+    assert pdb.clock_ms == rdb.clock_ms
+    assert pdb.fault_injector.scan_retries == (
+        rdb.fault_injector.scan_retries) > 0
