@@ -137,6 +137,23 @@ Phases, each asserted (any failure exits non-zero):
    crack-on-scan on phase 8(e)'s configuration (K3).  Every fifth scan
    of (a)'s 1-shard serialized run, (c)'s fixed run and (e) is held to
    numpy; every other arm's results are held equal to one of them.
+11. The replica tier through ``run_workload`` on phase 3's table, each
+   replica past 0 on its own copy of it, each arm a kernel twin against
+   a plain twin equal in every simulated field, configured from the
+   repo's benchmarks with budgets x rows / 8,000 and times x one table
+   scan's ratio (12.5): (a) ``benchmarks/replica_routing.py`` (240
+   statements from 3 tenants on one bursty stream) as single, mirrored
+   (3 replicas, equal to single field for field, every burst on
+   replica 0) and divergent (3 replicas routed by the planner's what-if
+   cost: more than one replica serves, the catalogs differ, results
+   equal single's); (b) (a)'s divergent arm on 4 round-robin shards
+   (K4), equal to (a)'s; (c) ``benchmarks/fault_recovery.py``
+   (a LOW-U every 12th statement, overlap lane, throttle on) as
+   fault-free, failover (a replica outage over the middle 30% of the
+   stream and every transient category, recovery on: results equal
+   fault-free's, availability 1, downtime > 0, the rejoined replica's
+   tables equal replica 0's) and no-recovery (statements drop).  Every
+   fifth scan of (a)'s single and divergent runs is held to numpy.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -209,6 +226,13 @@ LANE_TOTAL = 1_200  # the benchmarks' depth
 LANE_ASYNC_PHASE_LEN = 100   # benchmarks/async_tuning.py
 LANE_SERVING_PHASE_LEN = 150  # benchmarks/serving_slo.py
 LANE_FAULT_QUEUE_CAP = 1_024  # (d): past the deepest queue
+# Phase 11: the replica tier.  benchmarks/replica_routing.py and
+# benchmarks/fault_recovery.py run 8,000-row tables at 1e-4 ms per
+# tuple touch, 240 statements from 3 tenants.
+REPLICA_BENCH_ROWS = 8_000
+REPLICA_TOTAL = 240
+REPLICA_TENANTS = 3
+REPLICA_FAULT_QUEUE_CAP = 1_024  # (c): past the deepest queue
 
 
 def emit(obj) -> None:
@@ -759,12 +783,6 @@ def numpy_pairs(cols, q, ts, inner, rows=None):
     return int(np.dot(per_value.astype(np.int64), inner))
 
 
-def clone_table(t):
-    """A copy of a ``Table`` (or ``ShardedTable``) on its device."""
-    return t._replace(data=t.data.clone(), begin_ts=t.begin_ts.clone(),
-                      end_ts=t.end_ts.clone())
-
-
 FIELDS = ("cost_units", "latency_ms", "used_index", "agg_sum", "count",
           "rows_modified", "populate_units", "shard_pages")
 
@@ -877,6 +895,7 @@ def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False):
 def phase_main_path(torch, bfa, fa, dev, profile):
     """Phase 3: the predictive-indexing loop at 10M rows on the card."""
     from repro_torch.api import Database, TunerDB, make_tuner_db
+    from repro_torch.core.table import clone_table
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -1074,6 +1093,7 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
 def clustered_twins(torch, dev, num_shards=1):
     """Two databases over one clustered 10M-row table (its copy)."""
     from repro_torch.api import Database
+    from repro_torch.core.table import clone_table
 
     t0 = time.perf_counter()
     src = make_clustered_table(N_ROWS, PAGE_SIZE, device=dev)
@@ -1154,6 +1174,7 @@ def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
     table with per-shard builds (``hybrid_ps``); (c) phase 5's
     crack-on-scan loop on 4 shards (K3 at S = 4), at reduced depth."""
     from repro_torch.api import Database, IndexDescriptor, QueryGen
+    from repro_torch.core.table import clone_table
 
     dev = initial.tables["narrow"].device
     bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
@@ -1309,8 +1330,9 @@ def row_counts(table):
     return tuple(getattr(table, "local_rows", (table.n_rows,)))
 
 
-def numpy_oracle(db, workload, shared_ts):
-    """Wrap ``db``'s statement entry points so that every
+def numpy_oracle(db, workload, shared_ts, front=None):
+    """Wrap ``db``'s statement entry points (``front``'s, a replica set
+    whose replica 0 is ``db``, when given) so that every
     LOOP_CHECK_EVERY-th statement that is a scan gets the answer a numpy
     scan gives at its snapshot: (agg_sum, count), or (agg_sum, pairs)
     for a join.  A written slot never changes its values (an UPDATE
@@ -1338,8 +1360,7 @@ def numpy_oracle(db, workload, shared_ts):
     assert all(q.join_table in (None, "narrow") for q in items)
     log, epochs, pending, before, built = [], [], [], {}, {}
     writes, plans = [0], {}
-    batch, single, plan_scan = (db.execute_batch, db.execute,
-                                db.planner.plan_scan)
+    plan_scan = db.planner.plan_scan
 
     def planned(q):
         plan = plan_scan(q)
@@ -1433,14 +1454,16 @@ def numpy_oracle(db, workload, shared_ts):
             answers[i] = want
         return answers, len(before), len(built)
 
-    db.execute_batch, db.execute = execute_batch, execute
+    front = db if front is None else front
+    batch, single = front.execute_batch, front.execute
+    front.execute_batch, front.execute = execute_batch, execute
     db.planner.plan_scan = planned
     return finish
 
 
 def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
              oracle=False, shared_ts=False, db_kw=None, serving_kw=None,
-             faults_kw=None):
+             faults_kw=None, replica_kw=None):
     """One ``run_workload`` on the card (the closed loop, or the open
     loop when ``serving_kw`` names an arrival stream); returns the
     RunResult, the database, the kernel launches of the run (each
@@ -1448,11 +1471,16 @@ def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
     ``finish`` of a ``numpy_oracle`` (``shared_ts`` passed on), else
     None.  ``tuner`` is "dis", "predictive", a TunerConfig's fields or
     a callable that makes the tuner from the database; ``faults_kw``
-    are ``FaultOptions`` fields."""
+    are ``FaultOptions`` fields.  With ``replica_kw`` (``ReplicaOptions``
+    fields) ``run_workload`` wraps the database in its replica tier;
+    the database returned is then that ``ReplicaSet`` (recorded as the
+    runner makes it), and the oracle wraps the set's entry points."""
     from repro_torch.api import (Database, DisabledTuner, ExecOptions,
-                                 FaultOptions, PredictiveTuner, RunConfig,
+                                 FaultOptions, PredictiveTuner,
+                                 ReplicaOptions, ReplicaSet, RunConfig,
                                  ServingOptions, TunerConfig, TuningOptions,
                                  make_dl_tuner, run_workload)
+    from repro_torch.bench_db import runner
 
     db = Database({"narrow": table}, time_per_unit_ms=LOOP_UNIT_MS,
                   **(db_kw or {}))
@@ -1469,14 +1497,30 @@ def loop_run(torch, bfa, table, workload, tuner, exec_kw, tuning_kw,
                     tuning=TuningOptions(**tuning_kw),
                     serving=ServingOptions(**(serving_kw or {})),
                     faults=FaultOptions(**(faults_kw or {})),
+                    replica=ReplicaOptions(**(replica_kw or {})),
                     time_per_unit_ms=LOOP_UNIT_MS)
-    finish = numpy_oracle(db, workload, shared_ts) if oracle else None
+    made, finish = [], [None]
+
+    class Recorded(ReplicaSet):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+            if oracle:
+                finish[0] = numpy_oracle(self.dbs[0], workload, shared_ts,
+                                         front=self)
+
+    if oracle and not replica_kw:
+        finish[0] = numpy_oracle(db, workload, shared_ts)
     torch.cuda.synchronize()
     bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
-    res = run_workload(db, t, workload, cfg)
+    runner.ReplicaSet = Recorded
+    try:
+        res = run_workload(db, t, workload, cfg)
+    finally:
+        runner.ReplicaSet = ReplicaSet
     launches = dict(K1=bfa.launches, K3=bfa.masked_launches,
                     K4=bfa.sharded_launches)
-    return res, db, launches, finish
+    return res, (made[0] if made else db), launches, finish[0]
 
 
 def result_diffs(a, b):
@@ -1497,7 +1541,8 @@ def result_diffs(a, b):
 
 def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
              tuning_kw, must_launch, numpy_check=False, shared_ts=False,
-             db_kw=None, serving_kw=None, faults_kw=None, after=None):
+             db_kw=None, serving_kw=None, faults_kw=None, after=None,
+             replica_kw=None):
     """One arm of phases 8-10: a kernel twin (``use_kernel``) and a
     plain twin, each on its own table from ``make_table``.  Every
     simulated field must agree (no escalated build-lane drain may
@@ -1527,7 +1572,8 @@ def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
             torch, bfa, make_table(), workload, tuner,
             dict(exec_kw, use_kernel=use_kernel), tuning_kw,
             oracle=numpy_check and use_kernel, shared_ts=shared_ts,
-            db_kw=db_kw, serving_kw=serving_kw, faults_kw=faults_kw)
+            db_kw=db_kw, serving_kw=serving_kw, faults_kw=faults_kw,
+            replica_kw=replica_kw)
     (rk, dbk, lk, finish), (rp, dbp, lp, _) = out[True], out[False]
     fields, elements = result_diffs(rk, rp)
     extra = after(dbk, dbp) if after is not None else {}
@@ -1560,8 +1606,12 @@ def loop_arm(torch, bfa, tag, make_table, workload, tuner, exec_kw,
     assert all(lp[k] == 0 for k in lp), (tag, lp)
     for k in must_launch:
         assert lk[k] > 0, (tag, k, lk)
-    assert sum(rk.execution_tiers.values()) == len(rk.results) - sum(
-        q.kind != "scan" for _, q in workload)
+    served_scans = sum(rk.execution_tiers.values())
+    writes = sum(q.kind != "scan" for _, q in workload)
+    if rk.dropped_queries:  # which kind each drop was is not recorded
+        assert len(rk.results) - writes <= served_scans <= len(rk.results)
+    else:
+        assert served_scans == len(rk.results) - writes
     return rk, lk, peak, extra
 
 
@@ -1576,6 +1626,7 @@ def phase_closed_loop(torch, bfa, initial, profile=False):
     twin of (a)'s read_only predictive arm under torch.profiler.
     Returns the kernel twins' launches."""
     from repro_torch.api import (TUNING_FREQ_MS, QueryGen, hybrid_workload)
+    from repro_torch.core.table import clone_table
 
     t_phase = time.perf_counter()
     src = initial.tables["narrow"]
@@ -1709,6 +1760,7 @@ def phase_baselines(torch, bfa, initial):
                                  QueryGen, SmixTuner, TunerConfig,
                                  affinity_workload, hybrid_workload,
                                  segments_workload)
+    from repro_torch.core.table import clone_table
 
     t_phase = time.perf_counter()
     src = initial.tables["narrow"]
@@ -1890,6 +1942,7 @@ def phase_build_lane(torch, bfa, initial):
     those.  Returns the kernel twins' launches."""
     from repro_torch.api import (TUNING_FREQ_MS, Database, FaultSchedule,
                                  QueryGen, hybrid_workload)
+    from repro_torch.core.table import clone_table
 
     t_phase = time.perf_counter()
     src = initial.tables["narrow"]
@@ -2078,6 +2131,192 @@ def phase_build_lane(torch, bfa, initial):
     return launches
 
 
+def phase_replicas(torch, bfa, initial):
+    """Phase 11: the replica tier through ``run_workload`` on phase 3's
+    10M-row table, each arm a kernel twin against a plain twin equal in
+    every simulated field.  The configurations are the repo's
+    benchmarks scaled as phase 10 scales its: budgets and page counts
+    x rows / 8,000, the arrival gap, tuning interval, SLO, deadline,
+    straggler delay and outage window x the ratio of one unindexed
+    table scan here to one there (12.5).  (a)
+    ``benchmarks/replica_routing.py``: single, mirrored and divergent
+    on one bursty three-tenant stream (mirrored equals single, divergent
+    routes over several replicas with catalogs that differ and results
+    that equal single's); (b) (a)'s divergent arm on 4 round-robin
+    shards (K4), equal to (a)'s; (c) ``benchmarks/fault_recovery.py``:
+    fault-free, failover and no-recovery on one schedule (a replica
+    outage and every transient category), failover's results equal
+    fault-free's with full availability, no-recovery drops, and the
+    replica that rejoined holds tables equal to replica 0's.  Every
+    fifth scan of (a)'s single and divergent runs is held to numpy.
+    Returns the kernel twins' launches."""
+    from repro_torch.api import (FaultSchedule, QueryGen, ReplicaOutage,
+                                 Workload)
+    from repro_torch.core.cost_model import index_size_bytes
+    from repro_torch.core.replica import replica_index_summary
+    from repro_torch.core.table import clone_table
+
+    t_phase = time.perf_counter()
+    src = initial.tables["narrow"]
+    scale = N_ROWS // REPLICA_BENCH_ROWS  # budgets and page counts
+    ratio = (N_ROWS * LOOP_UNIT_MS) / (REPLICA_BENCH_ROWS
+                                       * LANE_BENCH_UNIT_MS)
+    launches, peaks, seconds, runs, lines = (dict(K1=0, K3=0, K4=0), {}, {},
+                                             {}, {})
+
+    def table():
+        return clone_table(src)
+
+    def arm(tag, *a, **k):
+        t_arm = time.perf_counter()
+        res, lk, peak, extra = loop_arm(torch, bfa, tag, table, *a, **k)
+        for key in launches:
+            launches[key] += lk[key]
+        peaks[tag] = peak
+        seconds[tag] = time.perf_counter() - t_arm
+        runs[tag] = res
+        routed = res.replica_routing
+        lines[tag] = dict(
+            cumulative_ms=res.cumulative_ms, p99_ms=res.p99_latency_ms,
+            p999_ms=res.p999_latency_ms, miss_rate=res.deadline_miss_rate,
+            routing={r: routed.count(r) for r in sorted(set(routed))},
+            availability=res.availability, dropped=res.dropped_queries,
+            downtime_ms=res.fault_downtime_ms,
+            scan_retries=res.fault_scan_retries,
+            stragglers=res.fault_stragglers,
+            build_failures=res.fault_build_failures,
+            tuner_charged_ms=res.tuner_charged_ms,
+            tuner_overlapped_ms=res.tuner_overlapped_ms,
+            index_count=res.index_counts[-1] if res.index_counts else 0,
+            wall_s=res.wall_s, launches=lk, peak_bytes=peak, **extra)
+        return res
+
+    def equal(tag, a, b, results_only=False, skip=()):
+        if results_only:
+            fields = [] if a.results == b.results else ["results"]
+            elements = sum(x != y for x, y in zip(a.results, b.results))
+        else:
+            fields, elements = result_diffs(a, b)
+            fields = [f for f in fields if f not in skip]
+        emit(dict(phase="replica_equal", check=tag, differing_fields=fields,
+                  differing_elements=elements))
+        assert not fields and elements == 0, (tag, fields, elements)
+
+    def tenant_workload(total, phase_len, update_every=0):
+        """The benchmarks' stream: tenant t probes attribute 1 + t
+        (QueryGen seed 29), a LOW-U every ``update_every``-th."""
+        gen = QueryGen(initial, seed=29)
+        items = []
+        for i in range(total):
+            if update_every and i % update_every == update_every - 1:
+                items.append((i // phase_len, gen.low_u()))
+            else:
+                items.append((i // phase_len,
+                              gen.low_s(attr=1 + (i % REPLICA_TENANTS))))
+        return Workload(items, "tenant families")
+
+    def catalogs(dbk, dbp):
+        """Per-replica catalogs of the twins (equal) and whether they
+        differ across replicas."""
+        cat = replica_index_summary(dbk)
+        assert cat == replica_index_summary(dbp), (cat,
+                                                   replica_index_summary(dbp))
+        return dict(catalogs=cat,
+                    catalogs_differ=len({tuple(n) for _, n in cat}) > 1)
+
+    tuner = dict(storage_budget_bytes=index_size_bytes(N_ROWS) * 1.25,
+                 pages_per_cycle=32 * scale,
+                 max_build_pages_per_cycle=64 * scale)
+    stream = dict(arrival_stream="bursty", arrival_ms=1.0 * ratio,
+                  arrival_seed=11, arrival_tenants=REPLICA_TENANTS)
+
+    # (a), (b): benchmarks/replica_routing.py.
+    rwl = tenant_workload(REPLICA_TOTAL, REPLICA_TOTAL // 3)
+    rtuning = dict(tuning_interval_ms=10.0 * ratio)
+    single = arm("a_single", rwl, tuner, dict(num_shards=1), rtuning,
+                 must_launch=("K1",), serving_kw=stream, numpy_check=True)
+    mirrored = arm("a_mirrored", rwl, tuner, dict(num_shards=1), rtuning,
+                   must_launch=("K1",), serving_kw=stream,
+                   replica_kw=dict(n_replicas=3), after=catalogs)
+    divergent = arm("a_divergent", rwl, tuner, dict(num_shards=1), rtuning,
+                    must_launch=("K1",), serving_kw=stream, numpy_check=True,
+                    replica_kw=dict(n_replicas=3, divergent_tuning=True),
+                    after=catalogs)
+    equal("a_mirrored_equals_single", mirrored, single,
+          skip=("replica_routing",))
+    assert set(mirrored.replica_routing) == {0}
+    assert len(set(divergent.replica_routing)) > 1
+    assert lines["a_divergent"]["catalogs_differ"]
+    equal("a_divergent_results_equal_single", divergent, single,
+          results_only=True)
+    div4 = arm("b_divergent_4_shards", rwl, tuner, dict(num_shards=4),
+               rtuning, must_launch=("K4",), serving_kw=stream,
+               replica_kw=dict(n_replicas=3, divergent_tuning=True),
+               after=catalogs)
+    equal("b_4_shards_equal_1", div4, divergent)
+
+    # (c): benchmarks/fault_recovery.py.
+    fwl = tenant_workload(REPLICA_TOTAL, REPLICA_TOTAL, update_every=12)
+    span = REPLICA_TOTAL * stream["arrival_ms"]
+    sched = FaultSchedule(
+        seed=11, outages=(ReplicaOutage(1, 0.35 * span, 0.65 * span),),
+        scan_error_rate=0.08, straggler_rate=0.1,
+        straggler_ms=0.3 * ratio, build_fail_rate=0.2)
+    ftuning = dict(tuning_interval_ms=10.0 * ratio, async_tuning="overlap",
+                   build_quantum_pages=8 * scale,
+                   build_queue_cap=REPLICA_FAULT_QUEUE_CAP)
+    fstream = dict(stream, slo_ms=2.0 * ratio, burst_deadline_ms=0.5 * ratio,
+                   build_throttle=True)
+
+    def rejoined(dbk, dbp):
+        """The replica that rejoined (replica 1) holds tables equal to
+        replica 0's, in both twins."""
+        out = {}
+        for name, rs in (("kernel", dbk), ("plain", dbp)):
+            a, b = rs.dbs[0].tables["narrow"], rs.dbs[1].tables["narrow"]
+            same = a.n_rows == b.n_rows and all(
+                torch.equal(x, y) for x, y in zip(
+                    (a.data, a.begin_ts, a.end_ts),
+                    (b.data, b.begin_ts, b.end_ts)))
+            out[name] = dict(rejoins=rs.rejoins, failover_routes=(
+                rs.failover_routes), replica_1_equals_0=same)
+        return dict(replicas=out)
+
+    c = {}
+    for name, faults in (("fault_free", None),
+                         ("failover", dict(fault_schedule=sched)),
+                         ("no_recovery", dict(fault_schedule=sched,
+                                              fault_recovery=False))):
+        c[name] = arm(f"c_{name}", fwl, tuner, dict(num_shards=1), ftuning,
+                      must_launch=("K1",), serving_kw=fstream,
+                      faults_kw=faults, replica_kw=dict(n_replicas=3),
+                      after=rejoined)
+    equal("c_failover_results_equal_fault_free", c["failover"],
+          c["fault_free"], results_only=True)
+    fo = c["failover"]
+    assert fo.availability == 1.0 and fo.dropped_queries == 0
+    assert fo.fault_downtime_ms > 0.0
+    for twin in lines["c_failover"]["replicas"].values():
+        assert twin["rejoins"] == 1 and twin["replica_1_equals_0"], twin
+    assert c["no_recovery"].dropped_queries > 0
+
+    emit(dict(phase="replica_arms", arms=lines))
+    emit(dict(phase="replicas", seconds=time.perf_counter() - t_phase,
+              arm_seconds=seconds, peak_bytes=peaks, launches=launches,
+              interval_ratio=ratio, budget_scale=scale))
+    emit(dict(phase="scale_replicas",
+              reduced=[],
+              note=f"{N_ROWS} rows x 21 attrs, page_size {PAGE_SIZE}: "
+                   f"phase 3's table, a copy per replica; "
+                   f"{REPLICA_TOTAL} statements (the benchmarks' depth), "
+                   f"budgets x{scale} (rows / {REPLICA_BENCH_ROWS}), "
+                   f"arrival gap, interval, SLO, deadline, straggler "
+                   f"delay and outage window x{ratio:g} (one table scan "
+                   f"here / there); read bursts of {LOOP_BATCH}; (c) "
+                   f"queue cap {REPLICA_FAULT_QUEUE_CAP}"))
+    return launches
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -2252,17 +2491,19 @@ def main(argv) -> int:
     loop = phase_closed_loop(torch, bfa, initial, profile)  # own peak
     base = phase_baselines(torch, bfa, initial)  # own peak
     lane = phase_build_lane(torch, bfa, initial)  # own peak
+    rep = phase_replicas(torch, bfa, initial)  # own peak
     del initial
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
-              phase8=loop, phase9=base, phase10=lane))
+              phase8=loop, phase9=base, phase10=lane, phase11=rep))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
         dict(name="K1 batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:163",
-             launches=k1_launches + loop["K1"] + base["K1"] + lane["K1"],
+             launches=(k1_launches + loop["K1"] + base["K1"] + lane["K1"]
+                       + rep["K1"]),
              max_abs_err=max(kr[("K1", b)]["max_abs_err"]
                              for b in (1, 8, 32)),
              ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
@@ -2279,7 +2520,7 @@ def main(argv) -> int:
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
              launches=(k3_launches + k3_sharded + loop["K3"] + base["K3"]
-                       + lane["K3"]),
+                       + lane["K3"] + rep["K3"]),
              max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
@@ -2287,7 +2528,8 @@ def main(argv) -> int:
         dict(name="K4 sharded_batched_filter_agg", route="cuda",
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:308",
-             launches=k4_launches + loop["K4"] + base["K4"] + lane["K4"],
+             launches=(k4_launches + loop["K4"] + base["K4"] + lane["K4"]
+                       + rep["K4"]),
              max_abs_err=k4["max_abs_err"],
              ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],

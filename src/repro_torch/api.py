@@ -42,6 +42,7 @@ from repro_torch.core.index import (
     ShardedIndex,
     eligible_global_pages,
 )
+from repro_torch.core.replica import ReplicaSet, ReplicaSetTuner
 from repro_torch.core.table import (
     ShardedTable,
     Table,
@@ -83,6 +84,8 @@ __all__ = [
     "QueryGen",
     "ReplicaOptions",
     "ReplicaOutage",
+    "ReplicaSet",
+    "ReplicaSetTuner",
     "ReplicaUnavailable",
     "RunConfig",
     "RunResult",

@@ -20,8 +20,10 @@ mode, Figure 6) -- tuner *models* survive drops.
 The asynchronous build lane (``async_tuning`` "deterministic" and
 "overlap", ``core.build_service.BuildService``), the open-loop serving
 driver (``arrival_stream`` / ``burst_deadline_ms``: completion minus
-arrival, the SLO report, the build throttle and load shedding) and
-fault schedules on one engine (transient scan errors, stragglers,
+arrival, the SLO report, the build throttle and load shedding), the
+replica tier (``ReplicaOptions``: ``core.replica``, cost routing,
+divergent tuning lanes) and fault schedules (replica outages with
+failover and catch-up replay, transient scan errors, stragglers,
 build-quantum failures with retry, backoff and quarantine) follow the
 reference's code paths.
 
@@ -35,9 +37,9 @@ The reference's wall-clock inputs stay so here: the overlap lane's
 escalated drains once its queue passes ``build_queue_cap``
 (``build_escalations`` counts them) and ``adaptive_build_budget``; a
 run that must replay bit for bit has ``build_escalations == 0`` and
-leaves adaptive sizing off.  The options whose slices are not ported
-yet -- replicas and the device mesh -- raise ``NotImplementedError``
-at the top of ``run_workload``, before any state changes.
+leaves adaptive sizing off.  The options whose slice is not ported
+yet -- the device mesh -- raise ``NotImplementedError`` at the top of
+``run_workload``, before any state changes.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 from repro_torch.bench_db.workloads import Workload
 from repro_torch.core.build_service import BuildService
 from repro_torch.core.executor import Database
+from repro_torch.core.replica import ReplicaSet, ReplicaSetTuner
 from repro_torch.faults import FaultInjector, FaultSchedule
 from repro_torch.serving.admission import (
     backlog_depth,
@@ -169,7 +172,13 @@ class ServingOptions:
 
 @dataclass
 class ReplicaOptions:
-    """Replica tier (not ported yet): ``n_replicas > 1`` raises."""
+    """Replica tier (``core.replica``).
+
+    ``n_replicas > 1`` wraps the database and tuner in a
+    ``ReplicaSet`` / ``ReplicaSetTuner`` on the database's device:
+    data-equal replicas (each past 0 on its own copy of the tables),
+    scans cost-routed to the cheapest, one tuning lane per replica,
+    divergent when ``divergent_tuning``.  1 never wraps."""
 
     n_replicas: int = 1
     divergent_tuning: bool = False
@@ -180,13 +189,16 @@ class FaultOptions:
     """Deterministic fault injection (repro_torch.faults) + recovery.
 
     ``fault_schedule`` attaches a seeded ``FaultSchedule`` to the run:
-    transient scan errors, straggler dispatch latency and build-quantum
-    failures (outages need a replica tier, which is not ported: a
-    schedule with outages raises ``ValueError``).  ``fault_recovery``
-    on retries failed quanta with exponential backoff
+    replica outages, transient scan errors, straggler dispatch latency
+    and build-quantum failures.  Outages need a replica tier
+    (``ReplicaOptions.n_replicas > 1``): on one engine a schedule with
+    outages raises ``ValueError``.  ``fault_recovery`` on fails over
+    (routing skips a DOWN replica, which replays its catch-up log at
+    rejoin) and retries failed quanta with exponential backoff
     (``fault_build_backoff_ms * 2**attempt``, quarantine after
-    ``fault_build_max_attempts`` failures); off discards them.  None
-    injects nothing."""
+    ``fault_build_max_attempts`` failures); off, a crash is permanent,
+    statements routed to the dead replica drop and failed quanta are
+    discarded.  None injects nothing."""
 
     fault_schedule: Optional[FaultSchedule] = None
     fault_recovery: bool = True
@@ -305,7 +317,8 @@ class RunResult:
     build_shed_quanta: int = 0          # quanta dropped by load shedding
     # execution tier -> queries served by it (ScanEngine.last_tier).
     execution_tiers: Dict[str, int] = field(default_factory=dict)
-    # Replica routing (the replica tier is not ported: stays empty).
+    # Replica routing: the replica id that served each routed scan /
+    # read burst, in order (empty without a replica tier).
     replica_routing: List[int] = field(default_factory=list)
     # Per-statement (agg_sum, count, rows_modified) in served order:
     # a fault schedule with recovery on reproduces the fault-free
@@ -373,15 +386,10 @@ def _check_ported(cfg: RunConfig) -> None:
     unknown async mode."""
     if cfg.async_tuning not in (None, "deterministic", "overlap"):
         raise ValueError(f"async_tuning: {cfg.async_tuning!r}")
-    missing = []
-    if cfg.n_replicas > 1:
-        missing.append("replicas (n_replicas > 1): core.replica")
     if cfg.mesh or cfg.mesh_query_axis > 1:
-        missing.append("the device mesh (mesh=True / mesh_query_axis > 1): "
-                       "parallel/mesh")
-    if missing:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(missing))
+            "not ported yet: the device mesh (mesh=True / "
+            "mesh_query_axis > 1): parallel/mesh")
 
 
 def run_workload(
@@ -390,30 +398,47 @@ def run_workload(
     """Drive ``tuner`` over ``workload`` on the simulated clock, on the
     database's device: the closed-loop replay driver, or (when an
     arrival stream / burst deadline is configured) the open-loop
-    serving driver.  A fault schedule attaches a ``FaultInjector`` to
-    the database first; its counters land in the result."""
+    serving driver.  With ``cfg.replica.n_replicas > 1`` the database
+    and tuner are first wrapped in the replica tier (``core.replica``);
+    1 never wraps.  A fault schedule attaches a ``FaultInjector`` (to
+    every replica); its counters land in the result."""
     _check_ported(cfg)
-    injector: Optional[FaultInjector] = None
     schedule = cfg.faults.fault_schedule
+    if (schedule is not None and schedule.outages
+            and cfg.replica.n_replicas <= 1):
+        raise ValueError(
+            "FaultSchedule.outages require a replica tier "
+            "(ReplicaOptions.n_replicas > 1): a single engine has "
+            "nothing to fail over to"
+        )
+    rs: Optional[ReplicaSet] = None
+    if cfg.replica.n_replicas > 1:
+        # Reshard BEFORE cloning so that every replica adopts the
+        # target layout (the drivers' own reshard check then no-ops).
+        if cfg.num_shards != db.num_shards:
+            db.reshard(cfg.num_shards)
+        rs = ReplicaSet(db, cfg.replica.n_replicas,
+                        divergent=cfg.replica.divergent_tuning)
+        tuner = ReplicaSetTuner(rs, tuner)
+        db = rs
+    injector: Optional[FaultInjector] = None
     if schedule is not None:
-        if schedule.outages:
-            raise ValueError(
-                "FaultSchedule.outages require a replica tier "
-                "(ReplicaOptions.n_replicas > 1): a single engine has "
-                "nothing to fail over to"
-            )
         injector = FaultInjector(
             schedule, recovery=cfg.faults.fault_recovery
         )
-        db.fault_injector = injector
+        db.fault_injector = injector  # fans out across replicas
     if cfg.arrival_stream is not None or cfg.burst_deadline_ms is not None:
         res = _run_open_loop(db, tuner, workload, cfg)
     else:
         res = _run_closed_loop(db, tuner, workload, cfg)
+    if rs is not None:
+        res.replica_routing = list(rs.routed_queries)
     if injector is not None:
         res.fault_scan_retries = injector.scan_retries
         res.fault_stragglers = injector.straggler_events
         res.fault_build_failures = injector.build_failures
+        if rs is not None:
+            res.fault_downtime_ms = float(sum(rs.downtime_ms))
         offered = len(res.latencies_ms) + res.dropped_queries
         res.availability = (
             len(res.latencies_ms) / offered if offered else 1.0
@@ -572,6 +597,12 @@ def _run_closed_loop(
     def account(phase, q, stats):
         """Per-query bookkeeping shared by the single and batch paths."""
         nonlocal blocking_ms, idle_credit_ms
+        if stats is None:
+            # A dropped statement (recovery off, routed to a dead
+            # replica): only the drop counts; pending blocking work
+            # carries to the next served query.
+            res.dropped_queries += 1
+            return
         extra_units = tuner.on_query(q, stats)
         extra_ms = extra_units * cfg.time_per_unit_ms
         db.clock_ms += extra_ms
@@ -722,8 +753,13 @@ def _run_open_loop(
         # the staged burst dispatches (one batch in flight is the
         # steady state, not a backlog).
         depth = backlog_depth(arrivals, max(served, staged_end), db.clock_ms)
-        return slo_pressure(depth, ewma_service_ms, cfg.slo_ms,
-                            cfg.slo_headroom)
+        # Degraded mode: a lost replica shrinks serving capacity, so
+        # the same backlog trips the throttle earlier (1.0 -- a plain
+        # engine or a healthy set -- changes nothing).
+        frac_up = getattr(db, "frac_up", None)
+        return slo_pressure(
+            depth, ewma_service_ms, cfg.slo_ms, cfg.slo_headroom,
+            capacity_frac=frac_up() if frac_up is not None else 1.0)
 
     def defer_ok() -> bool:
         # Deferring build work is safe only when the backlog is
@@ -889,6 +925,11 @@ def _run_open_loop(
                 )
             cum = 0.0
             for k, ((bph, q), stats) in enumerate(zip(burst, stats_list)):
+                if stats is None:
+                    # A dropped statement (recovery off): no service
+                    # time, no latency sample, only the availability hit.
+                    res.dropped_queries += 1
+                    continue
                 extra_units = tuner.on_query(q, stats)
                 extra_ms = extra_units * cfg.time_per_unit_ms
                 db.clock_ms += extra_ms

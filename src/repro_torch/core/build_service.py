@@ -64,9 +64,12 @@ behind ``RunConfig.adaptive_build_budget`` -- which a run that must
 replay bit for bit keeps off (``build_escalations == 0``, adaptive
 sizing off).
 
-The replica tier's build lanes (``BuildQuantum.replica``, a catalog
-per replica) are not ported yet: every quantum here applies to the
-service's one database.
+Replica lanes.  On a ``core.replica.ReplicaSet`` a quantum's
+``replica`` tag picks the catalogs it builds on (``build_targets``):
+``None`` applies the same slice to every replica and charges the max
+(mirrored replicas are parallel machines), an id builds on that
+replica alone.  ``drain`` groups the queue by lane and charges the
+max over the lanes' totals.  A plain ``Database`` is one lane.
 """
 
 from __future__ import annotations
@@ -116,8 +119,9 @@ class BuildQuantum:
     # pages (coverage) or advance the prefix (legacy).  ``pages`` is
     # the slice budget either way (== len(page_list) when present).
     page_list: tuple = ()
-    # Build lane of a replica tier (not ported yet): ``None`` is this
-    # database's one lane.
+    # Build lane (core.replica): ``None`` applies to every replica --
+    # on a plain Database, to that database -- and is charged once;
+    # an id targets that replica's catalog alone (divergent tuning).
     replica: Optional[int] = None
     # Fault-injection retry counter: how many apply attempts of this
     # quantum have already failed (0 on freshly planned quanta).
@@ -133,15 +137,28 @@ class CyclePlan:
     decide_work: float = 0.0
 
 
+def _targets(db, replica: Optional[int]):
+    """The catalogs a quantum of lane ``replica`` applies to: a replica
+    set's ``build_targets``, else the database itself."""
+    targets = getattr(db, "build_targets", None)
+    return targets(replica) if targets is not None else (db,)
+
+
 def apply_quantum(db, quantum: BuildQuantum) -> float:
-    """Apply one build quantum against the live catalog; returns work
-    units.  Skips (0.0) when the index was dropped or finished since
-    the quantum was planned."""
-    bi = db.indexes.get(quantum.index_name)
-    if bi is None or not bi.building or bi.scheme not in ("vap", "full"):
-        return 0.0
-    return db.vap_build_step(bi, quantum.pages, shard=quantum.shard,
+    """Apply one build quantum against the live catalog(s); returns
+    work units.  A target whose index was dropped or finished since
+    the quantum was planned is skipped.  On a replica set the
+    quantum's ``replica`` tag resolves the targets first and the
+    charge is the max over them (replicas build in parallel)."""
+    work = 0.0
+    for d in _targets(db, quantum.replica):
+        bi = d.indexes.get(quantum.index_name)
+        if bi is None or not bi.building or bi.scheme not in ("vap", "full"):
+            continue
+        w = d.vap_build_step(bi, quantum.pages, shard=quantum.shard,
                              page_list=quantum.page_list or None)
+        work = max(work, w)
+    return work
 
 
 def _sync(db) -> None:
@@ -287,10 +304,12 @@ class BuildService:
     def _quarantine_index(self, quantum: BuildQuantum) -> None:
         """Permanently failing quantum: stop building its index, which
         releases its budget share at the tuner's next decide and makes
-        queued sibling quanta stale no-ops."""
-        bi = self.db.indexes.get(quantum.index_name)
-        if bi is not None and bi.building:
-            bi.building = False
+        queued sibling quanta stale no-ops (on every catalog of the
+        quantum's lane)."""
+        for d in _targets(self.db, quantum.replica):
+            bi = d.indexes.get(quantum.index_name)
+            if bi is not None and bi.building:
+                bi.building = False
 
     def apply_next(self) -> float:
         """Apply the oldest queued quantum; returns its work units (0.0
@@ -384,9 +403,11 @@ class BuildService:
     def drain(self) -> float:
         """Apply every queued quantum (the deterministic boundary
         drain); returns the charged work units: the max over build
-        lanes of each lane's total (one lane here, so the sum).  Only
-        due retries take part, so the loop ends even when every
-        attempt fails."""
+        lanes (``BuildQuantum.replica``) of each lane's total, since
+        replicas build in parallel.  A single engine's quanta sit on
+        the one ``None`` lane, where the max is the sum.  Only due
+        retries take part, so the loop ends even when every attempt
+        fails."""
         self._admit_due_retries()
         lane_work: dict = {}
         while self.queue:

@@ -16,8 +16,10 @@ shard (``hybrid_ps``) once shard-targeted builds have diverged from
 the global round-robin prefix or the table's layout is not
 round-robin.
 
-The replica router's what-if ``estimate_scan_cost`` comes with the
-replicas.
+``estimate_scan_cost`` is the replica router's what-if cost
+(``core.replica``): the reference's arithmetic, decided from host
+metadata alone -- it pins no coverage view and touches no catalog
+state, so routing a burst reads nothing from the device.
 """
 
 from __future__ import annotations
@@ -234,10 +236,15 @@ class QueryPlanner:
                 best, best_key = bi, key
         return best
 
-    def plan_scan(self, q) -> ScanPlan:
-        bi = None
+    def _scan_index(self, q) -> Optional[BuiltIndex]:
+        """The index a scan would use: none for an unselective
+        predicate, else ``choose_index``."""
         if self.estimate_selectivity(q) <= HYBRID_SELECTIVITY_CUTOFF:
-            bi = self.choose_index(q)
+            return self.choose_index(q)
+        return None
+
+    def plan_scan(self, q) -> ScanPlan:
+        bi = self._scan_index(q)
         if bi is None:
             return ScanPlan("table")
         vap, vbp, complete = self._states(bi)
@@ -258,6 +265,51 @@ class QueryPlanner:
         if self._needs_pershard_stitch(bi, vap):
             path = "hybrid_ps"
         return ScanPlan(path, bi, pinned_state=vap)
+
+    # -- what-if cost (replica routing) ----------------------------------
+    def estimate_scan_cost(self, q) -> float:
+        """What-if cost of serving ``q`` under the current catalog, in
+        the engine's tuple-touch units: ``scan_cost`` fed with estimated
+        pages and probes, as in the reference.  Host-only and free of
+        side effects: the access path is decided without minting a
+        plan (``plan_scan`` would pin a coverage view), every hybrid
+        flavour costs alike, and the built fraction reads host
+        metadata (watermarks, the host bitmap's count).  No dispatch,
+        no ``last_used_ms`` touch, no monitor record."""
+        t = self.db.tables[q.table]
+        layout = self.db.layouts[q.table]
+        psz = t.page_size
+        n_rows = int(t.n_rows)
+        if isinstance(t, ShardedTable):
+            used_pages = sum(-(-int(r) // psz) for r in t.local_rows)
+        else:
+            used_pages = -(-n_rows // psz)
+        bi = self._scan_index(q)
+        sel = self.estimate_selectivity(q)
+        if bi is None:
+            cost = scan_cost(layout, q.accessed_attrs, psz, used_pages, 0.0, 0)
+        elif bi.scheme == "vbp" or (bi.scheme == "full"
+                                    and self._states(bi)[2]):
+            # pure_vbp / pure_vap: the index answers alone
+            cost = scan_cost(layout, q.accessed_attrs, psz, 0, sel * n_rows,
+                             t.n_pages)
+        else:  # hybrid flavours: indexed prefix probes + table suffix
+            frac = bi.built_fraction(t)
+            start = int(frac * used_pages)
+            cost = scan_cost(layout, q.accessed_attrs, psz,
+                             used_pages - start, sel * frac * n_rows, start)
+        if q.join_table is not None:
+            n_inner = int(self.db.tables[q.join_table].n_rows)
+            has_idx = any(
+                b.scheme in ("vap", "full")
+                and not b.building
+                and cm.index_matches(b.desc, q.join_table,
+                                     (q.join_inner_attr,))
+                for b in self.db.indexes.values()
+            )
+            cost += (n_inner * cm.INDEX_PROBE_COST if has_idx
+                     else float(n_inner))
+        return cost
 
     @staticmethod
     def _coverage_is_legacy(cov, vap) -> bool:

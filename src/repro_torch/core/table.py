@@ -179,6 +179,16 @@ def load_table(values: np.ndarray, page_size: int, n_pages: int | None = None,
     return table._replace(n_rows=n)
 
 
+def clone_table(t):
+    """A copy of a ``Table`` or ``ShardedTable`` on its device, in the
+    same attribute-major layout (``clone`` keeps a dense tensor's
+    strides).  The mutators write in place, so a second engine over
+    the same data (a replica) needs its own tensors; the host metadata
+    (watermarks, page counts) is immutable and shared."""
+    return t._replace(data=t.data.clone(), begin_ts=t.begin_ts.clone(),
+                      end_ts=t.end_ts.clone())
+
+
 # ---------------------------------------------------------------------------
 # Visibility & predicates
 # ---------------------------------------------------------------------------

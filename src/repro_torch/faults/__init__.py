@@ -17,9 +17,9 @@ The port's copy of ``repro.faults``:
 Faults perturb latency and build pacing only: MVCC visibility depends
 on execution order, never on clock values, so with recovery on any
 schedule yields query results equal to the fault-free run's, and a
-zero-fault schedule equals running without one in every field.  The
-port runs them on one engine; outages need a replica tier, which is
-not ported yet, and a schedule with outages raises in ``run_workload``.
+zero-fault schedule equals running without one in every field.
+Outages need the replica tier (``core.replica``): on one engine a
+schedule with outages raises in ``run_workload``.
 """
 
 from __future__ import annotations

@@ -16,10 +16,10 @@ sequence number) mapped to [0, 1).  That makes fault injection
 
 Build-quantum failures target the async build lane
 (``core.build_service``); the legacy serialized tuning path applies
-quanta inline and is not fault-injected.  Replica outages require a
-replica tier, which the port does not have yet -- the runner rejects a
-schedule with outages on a single-engine run instead of silently
-ignoring them, as the reference's does.
+quanta inline and is not fault-injected.  Replica outages require the
+replica tier (``core.replica``): the runner rejects a schedule with
+outages on a single-engine run instead of silently ignoring it, as the
+reference's does.
 """
 
 from __future__ import annotations

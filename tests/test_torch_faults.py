@@ -1,5 +1,5 @@
 """Parity of the port's fault injection (``repro_torch.faults``) with the
-reference, on one engine.
+reference, on one engine and on the replica tier.
 
 ``unit_hash``, the schedule generators and ``FaultInjector``'s draw
 sequence equal the reference's draw for draw; whole ``run_workload``
@@ -16,12 +16,24 @@ change latency and build pacing but never results; with recovery off
 failed quanta are dropped and results still hold; an outage schedule
 on one engine raises; and the build lane's retry / backoff /
 quarantine / drop stub tests.
+
+So are the replica cases: chaos with outages keeps the fault-free
+results on mirrored and divergent tiers, 1 and 4 shards; recovery off
+drops statements; a rejoined replica's tables and window equal a
+replica that never crashed; all replicas down raises
+``ClusterUnavailable``; a one-horse route consults no planner; crack
+adoption under failover never double-counts a page; the open loop's
+degraded mode; and the chaos trajectory replays across hash seeds.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
+import torch
 
 import repro.api as R
 from repro.core import build_service as R_bs
@@ -368,3 +380,315 @@ def test_scripted_failures_walk_both_services_alike(recovery):
                 svc.apply_next()
             svc.db.clock_ms += 0.75
         assert _state(svcs[1]) == _state(svcs[0]), step
+
+
+# ---------------------------------------------------------------------------
+# The replica tier under faults (tests/test_faults.py's replica cases)
+# ---------------------------------------------------------------------------
+
+def run_replicas(pkg, tsrc, n_replicas=3, divergent=False,
+                 async_tuning="deterministic", num_shards=1, schedule=None,
+                 recovery=True, total=90, serving=None):
+    """test_faults.py's ``run_once``: a replica tier with the default
+    build budget; ``schedule`` is a FaultSchedule's fields (outages as
+    (replica, start, end) tuples)."""
+    if schedule is not None:
+        schedule = dict(schedule, outages=tuple(
+            pkg.ReplicaOutage(*o) for o in schedule.get("outages", ())))
+    db = pkg.Database(dict(tsrc.tables))
+    tuner = pkg.PredictiveTuner(db, pkg.TunerConfig(
+        storage_budget_bytes=index_size_bytes(N_ROWS) * 1.25))
+    cfg = pkg.RunConfig(
+        execution=pkg.ExecOptions(num_shards=num_shards),
+        tuning=pkg.TuningOptions(tuning_interval_ms=10.0,
+                                 async_tuning=async_tuning),
+        replica=pkg.ReplicaOptions(n_replicas=n_replicas,
+                                   divergent_tuning=divergent),
+        faults=pkg.FaultOptions(
+            fault_schedule=None if schedule is None
+            else pkg.FaultSchedule(**schedule), fault_recovery=recovery),
+        serving=pkg.ServingOptions(**(serving or {})))
+    return pkg.run_workload(db, tuner, families_workload(pkg, tsrc, total),
+                            cfg), db
+
+
+def replica_pair(**kw):
+    """The same replica-tier run in both packages, asserted equal field
+    for field (replica 0's clock, window and catalog too)."""
+    ref, rdb = run_replicas(R, SRC, **kw)
+    port, pdb = run_replicas(P, port_src(SRC), **kw)
+    assert port.build_escalations == ref.build_escalations == 0
+    assert_same_run(ref, port)
+    assert_same_db(rdb, pdb)
+    return port
+
+
+def chaos_sched(horizon_ms, seed=7):
+    """test_faults.py's ``chaos``: staggered quorum-safe outages and
+    every transient category."""
+    outs = P_sch.staggered_outages(3, horizon_ms, seed=seed)
+    return dict(CHAOS, seed=seed, outages=tuple(
+        dataclasses.astuple(o) for o in outs))
+
+
+@pytest.mark.parametrize("divergent,num_shards",
+                         [(False, 1), (True, 1), (False, 4), (True, 4)])
+def test_chaos_results_bit_identical_with_recovery(divergent, num_shards):
+    """Crashes, rejoins, scan retries, stragglers and build failures with
+    recovery on keep the fault-free results, on mirrored and divergent
+    tiers, 1 and 4 shards; each run equals the reference's."""
+    base = replica_pair(divergent=divergent, num_shards=num_shards)
+    res = replica_pair(divergent=divergent, num_shards=num_shards,
+                       schedule=chaos_sched(0.8 * base.cumulative_ms))
+    assert res.results == base.results
+    assert res.availability == 1.0 and res.dropped_queries == 0
+    assert res.fault_downtime_ms > 0.0
+    assert res.fault_scan_retries + res.fault_stragglers > 0
+    assert res.cumulative_ms > base.cumulative_ms
+
+
+def test_no_recovery_baseline_degrades_availability():
+    """Recovery off: permanent crashes drop the statements routed to dead
+    replicas, as in the reference."""
+    base = replica_pair()
+    res = replica_pair(schedule=chaos_sched(0.8 * base.cumulative_ms),
+                       recovery=False)
+    assert res.dropped_queries > 0 and res.availability < 1.0
+    assert len(res.results) < len(base.results)
+
+
+def _tables_equal(a, b):
+    return all(
+        ta.n_rows == tb.n_rows and all(torch.equal(x, y) for x, y in zip(
+            (ta.data, ta.begin_ts, ta.end_ts),
+            (tb.data, tb.begin_ts, tb.end_ts)))
+        for ta, tb in ((a[k], b[k]) for k in a))
+
+
+def test_rejoin_replays_catchup_bit_identical():
+    """A replica that crashes through scans and UPDATEs rejoins with
+    tables and monitor window equal to a replica that never crashed
+    (catch-up replay at the original base clocks); every statement,
+    clock and counter equals the reference's set."""
+    rsrc = R.make_tuner_db(n_rows=2_000)
+    sets = []
+    for pkg, tsrc in ((R, rsrc), (P, port_src(rsrc))):
+        gen = pkg.QueryGen(tsrc, seed=11)
+
+        def stmt(i):
+            return gen.low_u() if i % 4 == 3 else gen.low_s(attr=1 + (i % 2))
+
+        rs = pkg.ReplicaSet(pkg.Database(dict(tsrc.tables)), 3)
+        stats = [rs.execute(stmt(i)) for i in range(6)]
+        lat = rs.execute(gen.low_s(attr=1)).latency_ms
+        down, up = rs.clock_ms + 0.25 * lat, rs.clock_ms + 6.0 * lat
+        rs.fault_injector = pkg.FaultInjector(pkg.FaultSchedule(
+            outages=(pkg.ReplicaOutage(1, down, up),)), recovery=True)
+        i = 7
+        while rs.clock_ms <= up + lat:
+            stats.append(rs.execute(stmt(i)))
+            i += 1
+        sets.append((rs, [_stats_key(s) for s in stats], i))
+    (ref, ref_stats, n_ref), (rs, port_stats, n) = sets
+    assert port_stats == ref_stats and n == n_ref
+    assert (rs.rejoins, rs.downtime_ms, rs.failover_routes, rs._down) == (
+        ref.rejoins, ref.downtime_ms, ref.failover_routes, ref._down)
+    assert rs.rejoins == 1 and rs.downtime_ms[1] > 0.0
+    assert rs.failover_routes > 0 and not any(rs._down)
+    assert _tables_equal(rs.dbs[1].tables, rs.dbs[2].tables)
+    assert _tables_equal(rs.dbs[1].tables, rs.dbs[0].tables)
+    assert list(rs.dbs[1].monitor.records) == list(rs.dbs[2].monitor.records)
+    assert rs.dbs[1].clock_ms == rs.dbs[2].clock_ms == ref.dbs[1].clock_ms
+
+
+def _stats_key(s):
+    return (s.cost_units, s.latency_ms, s.used_index, s.agg_sum, s.count,
+            s.rows_modified)
+
+
+def test_all_replicas_down_raises_typed_error():
+    src = port_src(R.make_tuner_db(n_rows=1_000))
+    gen = P.QueryGen(src, seed=5)
+    outs = (P.ReplicaOutage(0, 0.0, 1e9), P.ReplicaOutage(1, 0.0, 1e9))
+    rs = P.ReplicaSet(P.Database(dict(src.tables)), 2)
+    rs.fault_injector = P.FaultInjector(P.FaultSchedule(outages=outs),
+                                        recovery=True)
+    with pytest.raises(P.ClusterUnavailable):
+        rs.execute(gen.low_s())
+    with pytest.raises(P.ClusterUnavailable):
+        rs.execute(gen.low_u())
+    # recovery off: the blind router drops instead of raising
+    rs2 = P.ReplicaSet(P.Database(dict(src.tables)), 2)
+    rs2.fault_injector = P.FaultInjector(P.FaultSchedule(outages=outs),
+                                         recovery=False)
+    assert rs2.execute(gen.low_s()) is None
+    assert rs2.execute(gen.low_u()) is None
+    assert rs2.execute_batch([gen.low_s(), gen.low_s()]) == [None, None]
+    assert rs2.dropped_statements == 4
+
+
+def test_route_short_circuits_skip_planner():
+    """A single candidate never consults a planner: one-replica sets,
+    empty bursts and a lone failover survivor."""
+    src = port_src(R.make_tuner_db(n_rows=1_000))
+    q = P.QueryGen(src, seed=3).low_s()
+
+    def boom(*a, **k):
+        raise AssertionError("planner consulted on a one-horse race")
+
+    rs1 = P.ReplicaSet(P.Database(dict(src.tables)), 1)
+    rs1.dbs[0].planner.estimate_scan_cost = boom
+    assert rs1.route_scan(q) == 0
+    assert rs1.route_burst([]) == 0
+    assert rs1.route_burst([q, q]) == 0
+    rs3 = P.ReplicaSet(P.Database(dict(src.tables)), 3)
+    for d in rs3.dbs:
+        d.planner.estimate_scan_cost = boom
+    rs3.fault_injector = P.FaultInjector(P.FaultSchedule(), recovery=True)
+    rs3._down = [False, True, True]
+    assert rs3.route_scan(q) == 0
+    assert rs3.route_burst([q]) == 0
+    assert rs3.failover_routes == 2
+
+
+_CRACK_SRC = R.make_tuner_db(n_rows=2_000)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 8168])
+def test_crack_under_failover_never_double_counts(seed):
+    """Crack adoption, build quanta and failover together: every
+    replica's coverage index holds exactly page_size entries per
+    covered page, results stay the no-index engine's, and every
+    statement and catalog equals the reference's (the masked scans run
+    K3's plain version)."""
+    runs = []
+    for pkg, tsrc in ((R, _CRACK_SRC), (P, port_src(_CRACK_SRC))):
+        gen, gen_o = pkg.QueryGen(tsrc, seed=seed), pkg.QueryGen(tsrc,
+                                                                 seed=seed)
+        rs = pkg.ReplicaSet(pkg.Database(dict(tsrc.tables)), 3)
+        rs.crack_on_scan = True
+        rs.crack_pages_per_scan = 4
+        outs = P_sch.staggered_outages(3, 12.0, seed=seed)
+        rs.fault_injector = pkg.FaultInjector(pkg.FaultSchedule(
+            seed=seed, outages=tuple(pkg.ReplicaOutage(
+                *dataclasses.astuple(o)) for o in outs)),
+            recovery=True)
+        tuner = pkg.ReplicaSetTuner(rs, pkg.PredictiveTuner(
+            rs.dbs[0], pkg.TunerConfig(
+                storage_budget_bytes=index_size_bytes(2_000) * 1.25)))
+        oracle = pkg.Database(dict(tsrc.tables))
+        stats = []
+        for i in range(40):
+            q, qo = gen.low_s(attr=1 + (i % 2)), gen_o.low_s(attr=1 + (i % 2))
+            s, so = rs.execute(q), oracle.execute(qo)
+            assert (s.agg_sum, s.count) == (so.agg_sum, so.count), i
+            stats.append(_stats_key(s))
+            tuner.on_query(q, s)
+            if i % 8 == 7:
+                tuner.tuning_cycle()
+        runs.append((rs, stats))
+    (ref, ref_stats), (rs, stats) = runs
+    assert stats == ref_stats
+    assert rs.routed_queries == ref.routed_queries
+    checked = 0
+    for d, rd in zip(rs.dbs, ref.dbs):
+        assert sorted(d.indexes) == sorted(rd.indexes)
+        for name, bi in d.indexes.items():
+            if bi.coverage is None:
+                continue
+            t = d.tables[bi.desc.table]
+            elig = set(int(p) for p in P.eligible_global_pages(t))
+            covered = np.flatnonzero(bi.coverage.built)
+            assert set(int(p) for p in covered) <= elig
+            assert bi.vap.n_entries == bi.coverage.count() * t.page_size
+            np.testing.assert_array_equal(
+                covered, np.flatnonzero(rd.indexes[name].coverage.built))
+            checked += 1
+    assert checked > 0
+
+
+OPEN_REPLICA = dict(arrival_stream="bursty", arrival_ms=0.5, arrival_seed=7,
+                    slo_ms=2.0, burst_deadline_ms=0.5, build_throttle=True)
+
+
+def test_degraded_mode_open_loop_recovery_vs_baseline():
+    """The open loop through a mid-run crash: with recovery the SLO
+    report shows full availability and downtime and the results equal
+    the fault-free stream's; without it statements drop.  Each run
+    equals the reference's."""
+    base = replica_pair(async_tuning="overlap", serving=OPEN_REPLICA)
+    sched = dict(seed=3, outages=((1, 2.0, 6.0), (2, 8.0, 12.0)),
+                 straggler_rate=0.1, straggler_ms=0.2)
+    rec = replica_pair(async_tuning="overlap", serving=OPEN_REPLICA,
+                       schedule=sched)
+    assert rec.results == base.results
+    assert rec.slo_report.availability == 1.0
+    assert rec.slo_report.downtime_ms > 0.0 and rec.slo_report.dropped == 0
+    bad = replica_pair(async_tuning="overlap", serving=OPEN_REPLICA,
+                       schedule=sched, recovery=False)
+    assert bad.dropped_queries > 0 and bad.slo_report.availability < 1.0
+    assert bad.slo_report.dropped == bad.dropped_queries
+
+
+def test_lost_capacity_trips_throttle_earlier():
+    """``slo_pressure`` scales its headroom by the up fraction, as the
+    reference's does; full capacity is the healthy predicate."""
+    from repro.serving.admission import slo_pressure as r_pressure
+    from repro_torch.serving.admission import slo_pressure
+
+    assert not slo_pressure(2, 1.0, slo_ms=6.0)
+    assert slo_pressure(2, 1.0, slo_ms=6.0, capacity_frac=0.5)
+    for depth in range(8):
+        for frac in (1.0, 2 / 3, 0.5, 1 / 3):
+            assert slo_pressure(depth, 1.0, 6.0, 0.5, frac) == r_pressure(
+                depth, 1.0, 6.0, 0.5, frac)
+        assert slo_pressure(depth, 1.0, slo_ms=6.0) == slo_pressure(
+            depth, 1.0, slo_ms=6.0, capacity_frac=1.0)
+
+
+_HASHSEED_SCRIPT = """
+import warnings
+warnings.simplefilter("ignore")
+from repro_torch import api as P
+from repro_torch.core.cost_model import index_size_bytes
+
+def run(schedule=None):
+    src = P.make_tuner_db(n_rows=4000, device="cpu")
+    gen = P.QueryGen(src, seed=29)
+    wl = P.Workload([(0, gen.low_u() if i % 9 == 8
+                      else gen.low_s(attr=1 + i % 3)) for i in range(90)],
+                    "families")
+    db = P.Database(dict(src.tables))
+    tuner = P.PredictiveTuner(db, P.TunerConfig(
+        storage_budget_bytes=index_size_bytes(4000) * 1.25))
+    return P.run_workload(db, tuner, wl, P.RunConfig(
+        tuning=P.TuningOptions(tuning_interval_ms=10.0,
+                               async_tuning="deterministic"),
+        replica=P.ReplicaOptions(n_replicas=3),
+        faults=P.FaultOptions(fault_schedule=schedule)))
+
+base = run()
+res = run(P.FaultSchedule(
+    seed=7, outages=P.staggered_outages(3, 0.8 * base.cumulative_ms, seed=7),
+    scan_error_rate=0.15, straggler_rate=0.2, straggler_ms=0.3,
+    build_fail_rate=0.3))
+print(res.results == base.results)
+print(res.fault_scan_retries, res.fault_stragglers,
+      res.fault_build_failures, round(res.fault_downtime_ms, 9))
+print([round(x, 9) for x in res.latencies_ms[-10:]])
+"""
+
+
+def test_chaos_deterministic_across_hash_seeds():
+    """The whole fault trajectory replays bit for bit under different
+    PYTHONHASHSEED values (the script imports only the port)."""
+    outs = []
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    for seed in ("0", "1"):
+        env = dict(os.environ, PYTHONHASHSEED=seed, PYTHONPATH=src)
+        out = subprocess.run([sys.executable, "-c", _HASHSEED_SCRIPT],
+                             capture_output=True, text=True, env=env,
+                             check=True)
+        outs.append(out.stdout)
+    assert outs[0] == outs[1]
+    assert outs[0].startswith("True")

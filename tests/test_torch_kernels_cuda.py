@@ -642,3 +642,55 @@ def test_cuda_open_loop_kernel_twin_equals_plain_twin(cuda, mode):
     assert k1 > 0 and res.slo_report is not None
     assert res.build_throttle_deferrals > 0
     assert res.fault_scan_retries + res.fault_stragglers > 0
+
+
+def _replica_burst(device, use_kernel):
+    """A 3-replica set at the CPU tests' size (3,000 rows, pages of 128)
+    whose replica 1 alone holds a half-built index on attribute 1, and
+    a standalone engine with replica 1's catalog.  Runs two read bursts
+    of 6 through the set -- attribute 1 (routed to replica 1, a hybrid
+    group) and attribute 2 (no index: replica 0) -- and the attribute-1
+    burst through the standalone engine.  Returns (set stats, routes,
+    set launches, standalone launches)."""
+    from repro_torch import api as P
+    from repro_torch.core.table import clone_table
+
+    src = P.make_tuner_db(n_rows=3_000, page_size=128, device=device)
+
+    def indexed(db):
+        bi = db.create_index(P.IndexDescriptor("narrow", (1,)), "vap")
+        db.vap_build_step(bi, 12)
+        return db
+
+    def fresh():
+        return P.Database({k: clone_table(t) for k, t in src.tables.items()})
+
+    rs = P.ReplicaSet(fresh(), 3)
+    indexed(rs.dbs[1])
+    solo = indexed(fresh())
+    gen = P.QueryGen(src, selectivity=0.01, seed=23)
+    hot = [gen.low_s(attr=1) for _ in range(6)]
+    cold = [gen.low_s(attr=2) for _ in range(6)]
+    before = bfa.launches
+    stats = rs.execute_batch(hot, use_kernel=use_kernel)
+    stats += rs.execute_batch(cold, use_kernel=use_kernel)
+    set_launches = bfa.launches - before
+    before = bfa.launches
+    solo.execute_batch(hot, use_kernel=use_kernel)
+    solo.execute_batch(cold, use_kernel=use_kernel)
+    return stats, rs.routed_queries, set_launches, bfa.launches - before
+
+
+def test_cuda_replica_burst_launches_on_the_routed_replica_only(cuda):
+    """The replica tier on the card: each routed read burst runs K1 on
+    the replica the router chose and on no other (the set launches what
+    one engine launches for the same bursts), and its answers equal the
+    plain twin's."""
+    stats, routes, launched, solo = _replica_burst(cuda, True)
+    plain, plain_routes, plain_launched, _ = _replica_burst(cuda, False)
+    assert routes == plain_routes == [1, 0]
+    assert launched == solo > 0 and plain_launched == 0
+    key = ("cost_units", "latency_ms", "used_index", "agg_sum", "count")
+    for a, b in zip(stats, plain):
+        assert a.tier == "kernel"
+        assert [getattr(a, f) for f in key] == [getattr(b, f) for f in key]

@@ -289,14 +289,13 @@ def test_tuning_beats_disabled_on_stable_read_workload():
 # ---------------------------------------------------------------------------
 
 UNPORTED = [  # (group, field, value) of each option that raises
-    ("replica", "n_replicas", 2),
     ("execution", "mesh", True),
     ("execution", "mesh_query_axis", 2),
 ]
 
 
 @pytest.mark.parametrize("group,name,value", UNPORTED,
-                         ids=["replicas", "mesh", "mesh_query_axis"])
+                         ids=["mesh", "mesh_query_axis"])
 def test_unported_option_raises_before_any_state_change(group, name, value):
     src = port_src()
     db = P.Database(dict(src.tables))
