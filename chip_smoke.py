@@ -154,6 +154,23 @@ Phases, each asserted (any failure exits non-zero):
    fault-free's, availability 1, downtime > 0, the rejoined replica's
    tables equal replica 0's) and no-recovery (statements drop).  Every
    fifth scan of (a)'s single and divergent runs is held to numpy.
+12. The device mesh (``repro_torch.parallel.mesh``).  One card places
+   no grid, so (a)-(d) run under ``force_local_devices([cuda:0] * n)``
+   -- correctness and launch counts, not placement or speed across
+   cards -- each a kernel twin against a plain twin, tier
+   ``shard_map``: (a) phase 7(a)'s workload at d = 2, d = 4 and a 2 x 2
+   grid (``mesh_query_axis`` 2), burst for burst equal to phase 3, K4
+   launched once per device slice per table / hybrid group; (b) phase
+   7(b)'s skewed table (``hybrid_ps``) at d = 2, equal to 7(b); (c)
+   phase 7(c)'s crack-on-scan loop at d = 4, equal to 7(c), K3 once
+   per slice per masked group, then K4 and K3 on 2- and 1-shard slices
+   (views, no copy) against their plain versions; (d) phase 8(b)'s arm
+   through ``run_workload`` on 4 devices, equal to 8(b).  (e) On the
+   real device list the stacked dispatch runs (tier ``kernel``, the
+   same results) and ``mesh_mode = True`` raises; (f) with two cards
+   or more (a) also runs on the real devices (``real_placement``); (g)
+   a ``PredictivePrefixCache`` on the card equals one on the CPU over
+   200 cycles of a recurring-prefix stream.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -233,6 +250,11 @@ REPLICA_BENCH_ROWS = 8_000
 REPLICA_TOTAL = 240
 REPLICA_TENANTS = 3
 REPLICA_FAULT_QUEUE_CAP = 1_024  # (c): past the deepest queue
+# Phase 12: the device mesh.  One card places no grid (the reference's
+# rule needs two devices); a device list forced to n entries naming
+# cuda:0 runs the mesh forms on it.
+MESH_GRIDS = ((2, 1), (4, 1), (2, 2))  # (shard axis d, query axis q)
+PREFIX_CACHE_CYCLES = 200
 
 
 def emit(obj) -> None:
@@ -791,12 +813,12 @@ def stats_key(s):
     return tuple(getattr(s, f) for f in FIELDS)
 
 
-def twin_burst(torch, dbk, dbp, queries, burst):
+def twin_burst(torch, dbk, dbp, queries, burst, tier="kernel"):
     """One burst through both twins, in turns (neither alone pays the
     first use of an operator): the kernel twin with ``use_kernel``, its
     twin on the plain path.  Every stats field but wall_s / tier must
-    agree and every kernel-twin scan must report the kernel tier.
-    Returns (kernel twin stats, kernel seconds, plain seconds)."""
+    agree and every kernel-twin scan must report ``tier``.  Returns
+    (kernel twin stats, kernel seconds, plain seconds)."""
     order = ((dbk, True), (dbp, False))
     if burst % 2:
         order = order[::-1]
@@ -809,7 +831,7 @@ def twin_burst(torch, dbk, dbp, queries, burst):
     for i, (a, b) in enumerate(zip(out[True], out[False])):
         assert stats_key(a) == stats_key(b), (burst, i, a, b)
         if queries[i].kind == "scan":
-            assert a.tier == "kernel", (burst, i, a.tier)
+            assert a.tier == tier, (burst, i, a.tier)
     assert dbk.clock_ms == dbp.clock_ms
     return out[True], secs[True], secs[False]
 
@@ -825,13 +847,16 @@ def kernel_groups(db, scans, paths):
         groups.values())
 
 
-def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False):
+def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False,
+                per_group=1, tier="kernel"):
     """The phase-3 workload on two twin databases: N_BURSTS bursts of
     BURST_LOW_S LOW-S (attr 3) and BURST_MOD_S MOD-S (attrs 1, 2) scans
     at 1% selectivity, then one LOW-U and one 16-row INS, then one
     tuning cycle per twin.  ``count_launches`` reads the launch counter
-    of the kernel the table and hybrid groups take; it must grow by one
-    per such group.  With ``oracle`` two scans of every burst are also
+    of the kernel the table and hybrid groups take; it must grow by
+    ``per_group`` (a mesh: one launch per device slice) per such group,
+    and every kernel-twin scan must report ``tier``.  With ``oracle``
+    two scans of every burst are also
     held to a numpy scan of the table as the burst saw it.  Returns the
     per-burst record of every stats field, the timings and counts."""
     from repro_torch.api import PredictiveTuner, QueryGen, TunerConfig
@@ -864,7 +889,7 @@ def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False):
         if oracle:
             ts = dbk.clock_ms_i32()
             cols = host_columns(dbk.tables["narrow"], (1, 2, 3))
-        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst, tier)
         tk.append(k_s)
         tp.append(p_s)
         if oracle:
@@ -884,7 +909,7 @@ def prefix_loop(torch, dbk, dbp, tdb, tag, count_launches, oracle=False):
                       [int(x) for x in starts[n_before:]], default=0),
                   build_work=wk, built_pages=built))
     launches = count_launches() - launches0
-    assert launches == expected > 0, (tag, launches, expected)
+    assert launches == expected * per_group > 0, (tag, launches, expected)
     assert "hybrid" in paths or "hybrid_ps" in paths, paths
     stitch = max(int(x) for x in starts)
     assert stitch > 0, "no hybrid stitch past page 0"
@@ -1007,15 +1032,18 @@ def make_shifting_workload(n_rows, total, phase_len, width=512, seed=13):
     return items
 
 
-def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
+def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches,
+                per_group=1, tier="kernel"):
     """The phase-5 workload on two twin databases with crack_on_scan
     on: ``n_bursts`` bursts of MASKED_BURST scans of the shifting
     hot-range workload, one decide / apply tuning cycle per burst
     (hot-range page lists).  Every stats field, the clock, the quanta
-    and the coverage bits agree; K3 launches once per masked group and
-    the table kernel (``table_launches``) once per table / hybrid
-    group; a numpy scan of the final table equals the kernel twin's
-    answers.  Returns the counts and timings."""
+    and the coverage bits agree; K3 launches ``per_group`` times (once
+    per device slice of a mesh) per masked group and the table kernel
+    (``table_launches``) as often per table / hybrid group; every
+    kernel-twin scan reports ``tier``; a numpy scan of the final table
+    equals the kernel twin's answers.  Returns the counts, timings and
+    the per-burst record (stats, quanta, build work)."""
     import numpy as np
 
     from repro_torch.api import PredictiveTuner, TunerConfig
@@ -1033,7 +1061,7 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
                                 MASKED_PHASE_LEN)
     k3_0, table_0 = bfa.masked_launches, table_launches()
     masked_groups, table_groups, non_prefix, populate = 0, 0, 0, 0.0
-    tk, tp = [], []
+    tk, tp, record = [], [], []
     for burst in range(n_bursts):
         scans = wl[burst * MASKED_BURST:(burst + 1) * MASKED_BURST]
         n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
@@ -1042,7 +1070,7 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
         masked = [p for p in plans if p.path == "hybrid_masked"]
         masked_groups += len(masked)
         non_prefix += any(not p.index.coverage.is_prefix() for p in masked)
-        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst, tier)
         tk.append(k_s)
         tp.append(p_s)
         populate += sum(s.populate_units for s in sk)
@@ -1057,6 +1085,7 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
         for name, b in dbk.indexes.items():
             assert np.array_equal(b.coverage.built,
                                   dbp.indexes[name].coverage.built)
+        record.append(([stats_key(s) for s in sk], qk, wk, dbk.clock_ms))
         emit(dict(phase=f"{tag}_burst", burst=burst, kernel_s=k_s,
                   plain_s=p_s, paths=sorted(p.path for p in plans),
                   populate_units=sum(s.populate_units for s in sk),
@@ -1067,8 +1096,10 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
     # The path's counts, read before the checks below.
     k3_launches = bfa.masked_launches - k3_0
     t_launches = table_launches() - table_0
-    assert k3_launches == masked_groups > 0, (k3_launches, masked_groups)
-    assert t_launches == table_groups, (t_launches, table_groups)
+    assert k3_launches == masked_groups * per_group > 0, (k3_launches,
+                                                          masked_groups)
+    assert t_launches == table_groups * per_group, (t_launches,
+                                                    table_groups)
     assert non_prefix > 0, "no burst planned a bitmap that is not a prefix"
     assert populate > 0, "crack adoption charged no populate units"
     bi = dbk.indexes["narrow:1"]
@@ -1083,7 +1114,7 @@ def masked_loop(torch, bfa, dbk, dbp, n_bursts, tag, table_launches):
         assert (got.agg_sum, got.count) == numpy_scan(table, q, ts), q
         masked_checks += plan.path == "hybrid_masked"
     assert masked_checks > 0
-    return dict(tk=tk, tp=tp, k3_launches=k3_launches,
+    return dict(tk=tk, tp=tp, record=record, k3_launches=k3_launches,
                 table_launches=t_launches, masked_groups=masked_groups,
                 non_prefix_bursts=non_prefix, populate_units=populate,
                 final_covered_pages=bi.coverage.count(),
@@ -1116,7 +1147,7 @@ def phase_masked_path(torch, bfa, fa, dev, profile):
     run = masked_loop(torch, bfa, dbk, dbp, N_MASKED_BURSTS, "masked",
                       lambda: bfa.launches)
     assert fa.launches == 0
-    tk, tp = run.pop("tk"), run.pop("tp")
+    tk, tp, _ = run.pop("tk"), run.pop("tp"), run.pop("record")
     emit(dict(phase="masked_path", bursts=N_MASKED_BURSTS,
               scans_per_burst=MASKED_BURST,
               kernel_median_burst_ms=statistics.median(tk) * 1e3,
@@ -1167,13 +1198,74 @@ def skewed_tuner_db(initial, page_counts):
                    n_rows=n_rows, rng=None)
 
 
+def skewed_loop(torch, bfa, initial, tag, oracle=False, per_group=1,
+                tier="kernel"):
+    """Phase 7(b)'s loop: the 36/4/4/4 skewed table cut from
+    ``initial`` (adopted as is) in two twin databases, per-shard VAP
+    builds, SKEW_BURSTS read bursts with one more per-shard quantum
+    after each.  K4 launches ``per_group`` times per table / hybrid
+    group and every kernel-twin scan reports ``tier``; with ``oracle``
+    every scan is held to numpy.  Returns the per-burst record, counts
+    and timings."""
+    from repro_torch.api import Database, IndexDescriptor, QueryGen
+    from repro_torch.core.table import clone_table
+
+    t0 = time.perf_counter()
+    sdb = skewed_tuner_db(initial, SKEW_PAGES)
+    st = sdb.tables["narrow"]
+    twin = clone_table(st)
+    dbk, dbp = Database({"narrow": st}), Database({"narrow": twin})
+    torch.cuda.synchronize()
+    emit(dict(phase=f"load_{tag}", rows=st.n_rows,
+              local_pages=list(st.local_pages),
+              seconds=time.perf_counter() - t0))
+    assert dbk.num_shards == 4 and not dbk.table_is_round_robin("narrow")
+    works = []
+    for db in (dbk, dbp):
+        bi = db.create_index(IndexDescriptor("narrow", (1,)), "vap")
+        works.append([db.vap_build_step(bi, pages=p, shard=s)
+                      for s, p in ((0, SKEW_PAGES[0] // 3), (2, 1_000))])
+    assert works[0] == works[1]
+    gen = QueryGen(sdb, selectivity=0.01, seed=21)
+    cols = host_columns(st, (1, 2, 3)) if oracle else None  # read-only
+    k4_0, expected, ps_groups, checked, tk, tp, record = (
+        bfa.sharded_launches, 0, 0, 0, [], [], [])
+    for burst in range(SKEW_BURSTS):
+        scans = [gen.low_s(attr=1) for _ in range(BURST_LOW_S)] + [
+            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)]
+        n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
+                                              "hybrid_ps"))
+        expected += n
+        ps_groups += sum(p.path == "hybrid_ps" for p in plans)
+        ts = dbk.clock_ms_i32()
+        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst, tier)
+        tk.append(k_s)
+        tp.append(p_s)
+        record.append(([stats_key(s) for s in sk], dbk.clock_ms))
+        if oracle:
+            for q, r in zip(scans, sk):
+                assert (r.agg_sum, r.count) == numpy_answer(cols, q, ts), q
+                checked += 1
+        for db in (dbk, dbp):  # one more per-shard quantum per burst
+            db.vap_build_step(db.indexes["narrow:1"], pages=2_000,
+                              shard=burst % 4)
+        emit(dict(phase=f"{tag}_burst", burst=burst, kernel_s=k_s,
+                  plain_s=p_s, paths=sorted(p.path for p in plans),
+                  used_index=sum(s.used_index for s in sk)))
+    k4_b = bfa.sharded_launches - k4_0
+    assert k4_b == expected * per_group > 0 and ps_groups > 0, (
+        k4_b, expected, ps_groups)
+    return dict(record=record, k4_launches=k4_b, hybrid_ps_groups=ps_groups,
+                tk=tk, tp=tp, numpy_checks=checked)
+
+
 def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
     """Phase 7: the sharded main path at 10M rows, a K4 twin against a
     plain twin: (a) phase 3's workload on 4 round-robin shards, equal
     to phase 3 burst for burst; (b) the 36/4/4/4 skewed pre-sharded
     table with per-shard builds (``hybrid_ps``); (c) phase 5's
     crack-on-scan loop on 4 shards (K3 at S = 4), at reduced depth."""
-    from repro_torch.api import Database, IndexDescriptor, QueryGen
+    from repro_torch.api import Database
     from repro_torch.core.table import clone_table
 
     dev = initial.tables["narrow"].device
@@ -1215,56 +1307,16 @@ def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
 
     # (b) The skewed layout, adopted as is; per-shard builds.
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    sdb = skewed_tuner_db(initial, SKEW_PAGES)
-    st = sdb.tables["narrow"]
-    twin = clone_table(st)
-    dbk, dbp = Database({"narrow": st}), Database({"narrow": twin})
-    torch.cuda.synchronize()
-    emit(dict(phase="load_skewed", rows=st.n_rows,
-              local_pages=list(st.local_pages),
-              seconds=time.perf_counter() - t0))
-    assert dbk.num_shards == 4 and not dbk.table_is_round_robin("narrow")
-    works = []
-    for db in (dbk, dbp):
-        bi = db.create_index(IndexDescriptor("narrow", (1,)), "vap")
-        works.append([db.vap_build_step(bi, pages=p, shard=s)
-                      for s, p in ((0, SKEW_PAGES[0] // 3), (2, 1_000))])
-    assert works[0] == works[1]
-    gen = QueryGen(sdb, selectivity=0.01, seed=21)
-    cols = host_columns(st, (1, 2, 3))  # a read-only workload
-    k4_0, expected, ps_groups, checked, tk, tp = (
-        bfa.sharded_launches, 0, 0, 0, [], [])
-    for burst in range(SKEW_BURSTS):
-        scans = [gen.low_s(attr=1) for _ in range(BURST_LOW_S)] + [
-            gen.mod_s(attrs=(1, 2)) for _ in range(BURST_MOD_S)]
-        n, plans = kernel_groups(dbk, scans, ("table", "hybrid",
-                                              "hybrid_ps"))
-        expected += n
-        ps_groups += sum(p.path == "hybrid_ps" for p in plans)
-        ts = dbk.clock_ms_i32()
-        sk, k_s, p_s = twin_burst(torch, dbk, dbp, scans, burst)
-        tk.append(k_s)
-        tp.append(p_s)
-        for q, r in zip(scans, sk):
-            assert (r.agg_sum, r.count) == numpy_answer(cols, q, ts), q
-            checked += 1
-        for db in (dbk, dbp):  # one more per-shard quantum per burst
-            db.vap_build_step(db.indexes["narrow:1"], pages=2_000,
-                              shard=burst % 4)
-        emit(dict(phase="skewed_burst", burst=burst, kernel_s=k_s,
-                  plain_s=p_s, paths=sorted(p.path for p in plans),
-                  used_index=sum(s.used_index for s in sk)))
-    k4_b = bfa.sharded_launches - k4_0
-    assert k4_b == expected > 0 and ps_groups > 0, (k4_b, expected,
-                                                    ps_groups)
-    out["b"] = dict(k4_launches=k4_b, hybrid_ps_groups=ps_groups,
-                    kernel_median_burst_ms=statistics.median(tk) * 1e3,
-                    plain_median_burst_ms=statistics.median(tp) * 1e3,
-                    numpy_checks=checked,
+    run = skewed_loop(torch, bfa, initial, "skewed", oracle=True)
+    out["b"] = dict(k4_launches=run["k4_launches"],
+                    hybrid_ps_groups=run["hybrid_ps_groups"],
+                    kernel_median_burst_ms=statistics.median(run["tk"]) * 1e3,
+                    plain_median_burst_ms=statistics.median(run["tp"]) * 1e3,
+                    numpy_checks=run["numpy_checks"],
                     peak_bytes=torch.cuda.max_memory_allocated())
     emit(dict(phase="skewed_path", bursts=SKEW_BURSTS, **out["b"]))
-    del dbk, dbp, st, twin, sdb, cols
+    record_b = run["record"]
+    del run
     torch.cuda.empty_cache()
 
     # (c) Phase 5's crack-on-scan loop on 4 round-robin shards.
@@ -1272,7 +1324,7 @@ def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
     dbk, dbp = clustered_twins(torch, dev, num_shards=4)
     run = masked_loop(torch, bfa, dbk, dbp, SHARDED_MASKED_BURSTS,
                       "sharded_masked", lambda: bfa.sharded_launches)
-    tk, tp = run.pop("tk"), run.pop("tp")
+    tk, tp, record_c = run.pop("tk"), run.pop("tp"), run.pop("record")
     out["c"] = dict(kernel_median_burst_ms=statistics.median(tk) * 1e3,
                     plain_median_burst_ms=statistics.median(tp) * 1e3,
                     k4_launches=run.pop("table_launches"),
@@ -1298,7 +1350,7 @@ def phase_sharded_path(torch, bfa, fa, profile, record_main, initial):
                        "9,999,360 rows"],
               note="(a) phase 3's 10M rows on 4 shards; (c) phase 5's "
                    "clustered 10M rows on 4 shards"))
-    return k4, out["c"]["k3_launches"]
+    return k4, out["c"]["k3_launches"], dict(b=record_b, c=record_c)
 
 
 def queries_to_converge(res) -> int:
@@ -1624,7 +1676,7 @@ def phase_closed_loop(torch, bfa, initial, profile=False):
     (``benchmarks/shard_tuning.py`` at full width); (e) 1 shard with
     crack-on-scan and decay.  With ``profile``, one more run of each
     twin of (a)'s read_only predictive arm under torch.profiler.
-    Returns the kernel twins' launches."""
+    Returns the kernel twins' launches and (b)'s kernel-twin result."""
     from repro_torch.api import (TUNING_FREQ_MS, QueryGen, hybrid_workload)
     from repro_torch.core.table import clone_table
 
@@ -1715,7 +1767,7 @@ def phase_closed_loop(torch, bfa, initial, profile=False):
                    f"{LOOP_PHASE_LEN}, read bursts of {LOOP_BATCH}; (d) "
                    f"{'/'.join(map(str, SKEW_PAGES))} pages, "
                    f"{cycle} pages per cycle"))
-    return launches
+    return launches, b
 
 
 def same_indexes(torch, dbk, dbp) -> dict:
@@ -2317,6 +2369,248 @@ def phase_replicas(torch, bfa, initial):
     return launches
 
 
+def mesh_slice_checks(torch, bfa, st, cov):
+    """K4 and K3 on the device slices a mesh cuts from the 4-shard
+    10M-row table ``st`` (S_local = 2 and 1, each slice past shard 0,
+    with the coverage view ``cov``'s words), held bit-equal to their
+    plain versions.  On the table's own device a slice is a view: no
+    copy.  Off the main path's counts."""
+    import numpy as np
+
+    from repro_torch.core.index import slice_coverage
+    from repro_torch.core.table import slice_shards
+
+    dev = st.device
+    rng = np.random.default_rng(21)
+    B = LOOP_BATCH
+    lo0 = rng.integers(0, 10**6, size=B)
+    qt = [torch.tensor(x.astype(np.int32), device=dev) for x in (
+        lo0, lo0 + 50_000, np.full(B, -(2**31)), np.full(B, 2**31 - 1),
+        rng.integers(0, 200, size=B))]
+    rows = []
+    for n_dev in (2, 4):
+        per = st.n_shards // n_dev
+        sl = slice_shards(st, per, 2 * per, dev)
+        assert sl.data.data_ptr() == st.data[per].data_ptr()  # a view
+        planes = (sl.data[..., 1], sl.data[..., 2], sl.data[..., 3],
+                  sl.begin_ts, sl.end_ts)
+        local = sl.local_pages_tensor()
+        starts = torch.tensor(rng.integers(
+            0, sl.max_pages, size=(per, B)).astype(np.int32), device=dev)
+        row, _ = k4_case(torch, bfa, planes, qt, starts, local,
+                         dict(layout="mesh_slice", devices=n_dev,
+                              shard0=per, S_local=per), timed=False)
+        rows.append(row)
+        words = slice_coverage(cov, per, 2 * per, dev).words
+        assert words.data_ptr() == cov.words[per].data_ptr()
+        before = bfa.masked_launches
+        ks, kc = bfa.sharded_batched_filter_agg_masked(*planes, *qt, words,
+                                                       local)
+        torch.cuda.synchronize()
+        assert bfa.masked_launches == before + 1
+        ps, pc = bfa.sharded_batched_filter_agg_masked_plain(
+            *planes, *qt, words, local)
+        err = int(max((ks.long() - ps.long()).abs().max(),
+                      (kc.long() - pc.long()).abs().max()))
+        assert torch.equal(ks, ps) and torch.equal(kc, pc), (n_dev, err)
+        emit(dict(phase="mesh_slice_kernel", kernel="K3", devices=n_dev,
+                  shard0=per, S_local=per, B=B, max_abs_err=err,
+                  equal=True, uncovered_pages=int((~cov.mask[per:2 * per])
+                                                  .sum())))
+    return max(r["max_abs_err"] for r in rows)
+
+
+def phase_mesh(torch, bfa, fa, initial, record_main, sharded_refs,
+               loop_b):
+    """Phase 12: the device mesh at 10M rows.  One card places no grid
+    (the reference's rule needs two devices), so (a)-(d) run under
+    ``force_local_devices([cuda:0] * n)``, each a kernel twin against a
+    plain twin: (a) phase 7(a)'s workload at d = 2, d = 4 and a 2 x 2
+    grid (``mesh_query_axis`` 2), burst for burst equal to phase 3 /
+    7(a), tier ``shard_map``, K4 once per slice per table / hybrid
+    group; (b) phase 7(b)'s skewed table (``hybrid_ps``) at d = 2,
+    equal to 7(b); (c) phase 7(c)'s crack-on-scan loop at d = 4, equal
+    to 7(c), K3 once per slice per masked group; (d) phase 8(b)'s arm
+    through ``run_workload`` on 4 devices, equal to 8(b).  (e) On the
+    real device list: auto falls back to the stacked dispatch (tier
+    ``kernel``, the same results) and ``mesh=True`` raises.  (f) With
+    two cards or more, (a) also runs on the real devices.  (g) A
+    ``PredictivePrefixCache`` on the card against one on the CPU.
+    Returns the phase's K3 / K4 launches."""
+    from repro_torch.api import (TUNING_FREQ_MS, Database,
+                                 PredictivePrefixCache, QueryGen,
+                                 hybrid_workload)
+    from repro_torch.core.table import clone_table
+    from repro_torch.parallel.mesh import force_local_devices
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    src = initial.tables["narrow"]
+    dev = src.device
+    launches = dict(K1=0, K3=0, K4=0)
+    bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
+    fa.launches = 0  # counts from here on are the mesh path's
+
+    def twins(**kw):
+        return (Database({"narrow": clone_table(src)}, **kw),
+                Database({"narrow": clone_table(src)}, **kw))
+
+    # (a) Phase 7(a)'s workload on three grids of one card.
+    for d, q in MESH_GRIDS:
+        n = d * q
+        dbk, dbp = twins(num_shards=4)
+        for db in (dbk, dbp):
+            db.engine.mesh_query_axis = q
+        with force_local_devices([dev] * n):
+            run = prefix_loop(torch, dbk, dbp, initial, f"mesh_{d}x{q}",
+                              lambda: bfa.sharded_launches, per_group=n,
+                              tier="shard_map")
+        assert run["record"] == record_main, ("mesh run differs", d, q)
+        launches["K4"] += run["launches"]
+        emit(dict(phase="mesh_path", grid=[d, q], slices=n,
+                  equal_to_phase7a=True, k4_launches=run["launches"],
+                  kernel_median_burst_ms=statistics.median(run["tk"]) * 1e3,
+                  plain_median_burst_ms=statistics.median(run["tp"]) * 1e3))
+        del dbk, dbp, run
+    # (b) Phase 7(b)'s skewed table with per-shard builds at d = 2.
+    with force_local_devices([dev] * 2):
+        run = skewed_loop(torch, bfa, initial, "mesh_skewed", per_group=2,
+                          tier="shard_map")
+    assert run["record"] == sharded_refs["b"], "mesh skewed run differs"
+    launches["K4"] += run["k4_launches"]
+    emit(dict(phase="mesh_skewed_path", grid=[2, 1], equal_to_phase7b=True,
+              k4_launches=run["k4_launches"],
+              hybrid_ps_groups=run["hybrid_ps_groups"]))
+    del run
+    torch.cuda.empty_cache()
+    # (c) Phase 7(c)'s crack-on-scan loop at d = 4.
+    dbk, dbp = clustered_twins(torch, dev, num_shards=4)
+    with force_local_devices([dev] * 4):
+        run = masked_loop(torch, bfa, dbk, dbp, SHARDED_MASKED_BURSTS,
+                          "mesh_masked", lambda: bfa.sharded_launches,
+                          per_group=4, tier="shard_map")
+    assert run["record"] == sharded_refs["c"], "mesh masked run differs"
+    launches["K3"] += run["k3_launches"]
+    launches["K4"] += run["table_launches"]
+    emit(dict(phase="mesh_masked_path", grid=[4, 1], equal_to_phase7c=True,
+              k3_launches=run["k3_launches"],
+              k4_launches=run["table_launches"],
+              masked_groups=run["masked_groups"]))
+    st = dbk.tables["narrow"]
+    cov = dbk.indexes["narrow:1"].coverage.view(st.n_shards, st.max_pages)
+    slice_err = mesh_slice_checks(torch, bfa, st, cov)
+    del dbk, dbp, run, st, cov
+    torch.cuda.empty_cache()
+    # (d) Phase 8(b)'s arm through run_workload on 4 devices.
+    gen = QueryGen(initial, selectivity=0.01, seed=17 + LOOP_PHASE_LEN)
+    wl = hybrid_workload(gen, "read_heavy", total=LOOP_TOTAL,
+                         phase_len=LOOP_PHASE_LEN)
+    fast = dict(tuning_interval_ms=TUNING_FREQ_MS["fast"],
+                shard_aware_tuning=False)
+    with force_local_devices([dev] * 4):
+        res, lk, _, _ = loop_arm(torch, bfa, "mesh_d_4_devices",
+                                 lambda: clone_table(src), wl, "predictive",
+                                 dict(num_shards=4), fast,
+                                 must_launch=("K4",))
+    fields, elements = result_diffs(res, loop_b)
+    assert not fields and elements == 0, (fields, elements)
+    assert res.execution_tiers.get("shard_map", 0) > 0, res.execution_tiers
+    assert not {"kernel", "vmap-stacked"} & set(res.execution_tiers), (
+        res.execution_tiers)
+    for key in launches:
+        launches[key] += lk[key]
+    emit(dict(phase="mesh_loop", equal_to_phase8b=True,
+              execution_tiers=res.execution_tiers, launches=lk))
+    # (e) The real device list: one card places no grid.
+    gen = QueryGen(initial, selectivity=0.01, seed=5)
+    scans = [gen.low_s(attr=3) for _ in range(BURST_LOW_S)]
+    dbk = Database({"narrow": clone_table(src)}, num_shards=4)
+    real = torch.cuda.device_count()
+    if real == 1:
+        base = dbk.execute_batch(scans, use_kernel=True)
+        assert {s.tier for s in base} == {"kernel"}, base
+        with force_local_devices([dev] * 4):
+            forced = dbk.execute_batch(scans, use_kernel=True)
+        assert {s.tier for s in forced} == {"shard_map"}
+        assert [(s.agg_sum, s.count, s.cost_units, s.used_index)
+                for s in base] == [(s.agg_sum, s.count, s.cost_units,
+                                    s.used_index) for s in forced]
+        dbk.engine.mesh_mode = True
+        try:
+            dbk.execute_batch(scans, use_kernel=True)
+        except RuntimeError as e:
+            assert "mesh" in str(e), e
+            refused = str(e)
+        else:
+            raise AssertionError("mesh=True did not raise on one card")
+        emit(dict(phase="mesh_one_card", fallback_tier="kernel",
+                  required_mesh_raises=refused))
+    del dbk
+    # (f) Real placement only where the machine has two cards or more.
+    emit(dict(phase="mesh_real_placement", real_placement=real >= 2,
+              device_count=real))
+    if real >= 2:
+        dbk, dbp = twins(num_shards=4)
+        run = prefix_loop(torch, dbk, dbp, initial, "mesh_real",
+                          lambda: bfa.sharded_launches,
+                          per_group=max(c for c in range(2, min(4, real) + 1)
+                                        if 4 % c == 0),
+                          tier="shard_map")
+        assert run["record"] == record_main
+        del dbk, dbp, run
+    # (g) The prefix cache's forecaster states on the card against the
+    # CPU over a recurring-prefix stream.
+    caches = [PredictivePrefixCache(hbm_budget_bytes=4_000.0,
+                                    bytes_per_token=2.0,
+                                    tokens_per_cycle=256, season_len=24,
+                                    max_idle_cycles=4, device=d_)
+              for d_ in (dev, "cpu")]
+    cyc = prefix_cache_stream(caches)
+    emit(dict(phase="mesh_prefix_cache", cycles=cyc, equal=True,
+              entries=len(caches[0].entries)))
+    emit(dict(phase="mesh", seconds=time.perf_counter() - t_phase,
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              launches=launches, slice_kernel_max_abs_err=slice_err))
+    emit(dict(phase="scale_mesh", reduced=[
+        "one card: the grids are forced device lists naming cuda:0 "
+        "(correctness and launch counts, not placement or speed across "
+        "cards)"],
+        note="(a) phase 3's 10M rows on 4 shards; (b) phase 7(b)'s "
+             "36/4/4/4 table; (c) phase 5's clustered 10M rows on 4 "
+             "shards; (d) phase 8(b)'s arm"))
+    return launches
+
+
+def prefix_cache_stream(caches):
+    """PREFIX_CACHE_CYCLES cycles of a recurring-prefix stream through
+    each cache of ``caches`` (a daily profile per prefix, Poisson
+    noise, one-shot prefixes): every lookup and ``cycle()`` dict must
+    agree.  Returns the cycles run."""
+    import numpy as np
+
+    rng = np.random.default_rng(33)
+    n = 16
+    lengths = rng.integers(32, 600, n)
+    profile = rng.integers(0, 8, (n, 24))
+    for c in range(PREFIX_CACHE_CYCLES):
+        hits = rng.poisson(profile[:, c % 24])
+        items = [(f"sys{k}", int(lengths[k])) for k in range(n)
+                 for _ in range(hits[k])]
+        if rng.random() < 0.3:
+            items.append((f"once{c}", int(rng.integers(8, 64))))
+        for i in rng.permutation(len(items)):
+            got = {pc.lookup(*items[i]) for pc in caches}
+            assert len(got) == 1, (c, items[i], got)
+        diags = [pc.cycle() for pc in caches]
+        assert all(x == diags[0] for x in diags), (c, diags)
+    a, b = caches
+    assert {p: e.covered_len for p, e in a.entries.items()} == {
+        p: e.covered_len for p, e in b.entries.items()}
+    return PREFIX_CACHE_CYCLES
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -2485,17 +2779,20 @@ def main(argv) -> int:
     memory("main path (phase 3)")
     k3_launches = phase_masked_path(torch, bfa, fa, dev, profile)
     memory("masked path (phase 5)")
-    k4_launches, k3_sharded = phase_sharded_path(torch, bfa, fa, profile,
-                                                 record, initial)
+    k4_launches, k3_sharded, sharded_refs = phase_sharded_path(
+        torch, bfa, fa, profile, record, initial)
     memory("sharded path (phase 7)")
-    loop = phase_closed_loop(torch, bfa, initial, profile)  # own peak
+    loop, loop_b = phase_closed_loop(torch, bfa, initial, profile)
     base = phase_baselines(torch, bfa, initial)  # own peak
     lane = phase_build_lane(torch, bfa, initial)  # own peak
     rep = phase_replicas(torch, bfa, initial)  # own peak
+    mesh = phase_mesh(torch, bfa, fa, initial, record, sharded_refs,
+                      loop_b)  # own peak
     del initial
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
-              phase8=loop, phase9=base, phase10=lane, phase11=rep))
+              phase8=loop, phase9=base, phase10=lane, phase11=rep,
+              phase12=mesh))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [
@@ -2503,7 +2800,7 @@ def main(argv) -> int:
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:163",
              launches=(k1_launches + loop["K1"] + base["K1"] + lane["K1"]
-                       + rep["K1"]),
+                       + rep["K1"] + mesh["K1"]),
              max_abs_err=max(kr[("K1", b)]["max_abs_err"]
                              for b in (1, 8, 32)),
              ms=k1["kernel_ms"], plain_ms=k1["plain_ms"],
@@ -2520,7 +2817,7 @@ def main(argv) -> int:
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:483",
              launches=(k3_launches + k3_sharded + loop["K3"] + base["K3"]
-                       + lane["K3"] + rep["K3"]),
+                       + lane["K3"] + rep["K3"] + mesh["K3"]),
              max_abs_err=k3["max_abs_err"],
              ms=k3["kernel_ms"], plain_ms=k3["plain_ms"],
              bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
@@ -2529,7 +2826,7 @@ def main(argv) -> int:
              source="src/repro_torch/kernels/csrc/filter_agg.cu",
              replaces="src/repro/kernels/batched_filter_agg.py:308",
              launches=(k4_launches + loop["K4"] + base["K4"] + lane["K4"]
-                       + rep["K4"]),
+                       + rep["K4"] + mesh["K4"]),
              max_abs_err=k4["max_abs_err"],
              ms=k4["kernel_ms"], plain_ms=k4["plain_ms"],
              bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],

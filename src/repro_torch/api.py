@@ -61,11 +61,19 @@ from repro_torch.faults import (
     chaos_schedule,
     staggered_outages,
 )
+from repro_torch.parallel.mesh import (
+    ScanMesh,
+    force_local_devices,
+    make_scan_mesh,
+)
+from repro_torch.serving.prefix_cache import PredictivePrefixCache
+from repro_torch.serving.scheduler import BatchScheduler, Request
 from repro_torch.serving.slo import SloReport
 
 __all__ = [
     "TUNING_FREQ_MS",
     "AdaptiveTuner",
+    "BatchScheduler",
     "ClusterUnavailable",
     "Database",
     "DisabledTuner",
@@ -79,6 +87,7 @@ __all__ = [
     "IndexDescriptor",
     "OnlineTuner",
     "PageCoverage",
+    "PredictivePrefixCache",
     "PredictiveTuner",
     "Query",
     "QueryGen",
@@ -87,8 +96,10 @@ __all__ = [
     "ReplicaSet",
     "ReplicaSetTuner",
     "ReplicaUnavailable",
+    "Request",
     "RunConfig",
     "RunResult",
+    "ScanMesh",
     "ServingOptions",
     "ShardedIndex",
     "ShardedTable",
@@ -102,8 +113,10 @@ __all__ = [
     "affinity_workload",
     "chaos_schedule",
     "eligible_global_pages",
+    "force_local_devices",
     "hybrid_workload",
     "make_dl_tuner",
+    "make_scan_mesh",
     "make_tuner_db",
     "run_workload",
     "segments_workload",

@@ -37,9 +37,7 @@ The reference's wall-clock inputs stay so here: the overlap lane's
 escalated drains once its queue passes ``build_queue_cap``
 (``build_escalations`` counts them) and ``adaptive_build_budget``; a
 run that must replay bit for bit has ``build_escalations == 0`` and
-leaves adaptive sizing off.  The options whose slice is not ported
-yet -- the device mesh -- raise ``NotImplementedError`` at the top of
-``run_workload``, before any state changes.
+leaves adaptive sizing off.
 """
 
 from __future__ import annotations
@@ -77,8 +75,12 @@ class ExecOptions:
     read_batch_size: int = 1
     # >1: partition tables round-robin by page.
     num_shards: int = 1
-    # Device mesh (not ported yet): None and False run the single-card
-    # dispatch; True, or mesh_query_axis > 1, raises.
+    # Device mesh (parallel.mesh): None = auto, batched sharded scans
+    # split over a device grid whenever the local devices place one
+    # (one card places none: the stacked dispatch); False = never;
+    # True = require a grid, raising without one.  mesh_query_axis > 1
+    # also splits a burst's queries over a second grid axis (claims
+    # n_shards x mesh_query_axis devices).
     mesh: Optional[bool] = None
     mesh_query_axis: int = 1
     # Route batched scan dispatches through the CUDA kernels
@@ -381,15 +383,10 @@ class RunResult:
         }
 
 
-def _check_ported(cfg: RunConfig) -> None:
-    """Raise for an option whose slice is not ported yet, and for an
-    unknown async mode."""
+def _check_async_mode(cfg: RunConfig) -> None:
+    """Raise for an unknown async mode, before any state changes."""
     if cfg.async_tuning not in (None, "deterministic", "overlap"):
         raise ValueError(f"async_tuning: {cfg.async_tuning!r}")
-    if cfg.mesh or cfg.mesh_query_axis > 1:
-        raise NotImplementedError(
-            "not ported yet: the device mesh (mesh=True / "
-            "mesh_query_axis > 1): parallel/mesh")
 
 
 def run_workload(
@@ -402,7 +399,7 @@ def run_workload(
     and tuner are first wrapped in the replica tier (``core.replica``);
     1 never wraps.  A fault schedule attaches a ``FaultInjector`` (to
     every replica); its counters land in the result."""
-    _check_ported(cfg)
+    _check_async_mode(cfg)
     schedule = cfg.faults.fault_schedule
     if (schedule is not None and schedule.outages
             and cfg.replica.n_replicas <= 1):
@@ -462,6 +459,8 @@ def _prepare(db: Database, tuner, cfg: RunConfig):
     db.crack_on_scan = bool(cfg.crack_on_scan)
     db.crack_pages_per_scan = int(cfg.crack_pages_per_scan)
     db.index_decay = bool(cfg.index_decay)
+    db.engine.mesh_mode = cfg.mesh
+    db.engine.mesh_query_axis = max(int(cfg.mesh_query_axis), 1)
     if cfg.async_tuning is None:
         return None
     overlap = cfg.async_tuning == "overlap"

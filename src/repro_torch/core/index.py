@@ -51,7 +51,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.table import INF_TS, ShardedTable, Table
+from repro_torch.core.table import INF_TS, ShardedTable, Table, place_rows
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -236,6 +236,17 @@ class ShardedIndex(NamedTuple):
             entries[s], built[s] = ix.n_entries, ix.built_pages
         return ShardedIndex(*arrays, tuple(entries), tuple(built),
                             self.capacities)
+
+
+def slice_shard_indexes(six: ShardedIndex, a: int, b: int,
+                        device: torch.device) -> ShardedIndex:
+    """Shards [a, b) of ``six`` on ``device`` (a view on its own device,
+    a cached copy elsewhere: ``table.place_rows``)."""
+    return ShardedIndex(place_rows(six.key_hi, a, b, device),
+                        place_rows(six.key_lo, a, b, device),
+                        place_rows(six.rids, a, b, device),
+                        six.shard_entries[a:b], six.shard_built[a:b],
+                        six.capacities[a:b])
 
 
 def stack_indexes(shards: Sequence[AdHocIndex]) -> ShardedIndex:
@@ -764,6 +775,14 @@ class CoverageView(NamedTuple):
     built_host: np.ndarray  # (n_pages_global,) bool, host copy
     mask: torch.Tensor  # (S, max_pages) bool, local page ids
     words: torch.Tensor  # (S, W) int32 packed coverage words
+
+
+def slice_coverage(cov: CoverageView, a: int, b: int,
+                   device: torch.device) -> CoverageView:
+    """Shards [a, b) of a pinned view's (S, max_pages) mask and (S, W)
+    words on ``device``; the host fields stay global."""
+    return cov._replace(mask=place_rows(cov.mask, a, b, device),
+                        words=place_rows(cov.words, a, b, device))
 
 
 def eligible_global_pages(table) -> np.ndarray:

@@ -152,8 +152,9 @@ def clone_tuner(
 
 class _EngineProxy:
     """Engine-shaped view over a replica set: attribute writes (the
-    overlap drain hook) fan out to every replica's ScanEngine, reads
-    resolve against replica 0."""
+    mesh flags, the overlap drain hook) fan out to every replica's
+    ScanEngine, reads resolve against replica 0.  The runner configures
+    ``db.engine`` without knowing a replica tier exists."""
 
     def __init__(self, dbs):
         object.__setattr__(self, "_dbs", dbs)
@@ -221,6 +222,13 @@ class ReplicaSet:
         self.rejoins = 0
 
     # -- replica plumbing ------------------------------------------------
+    @property
+    def n_replicas(self) -> int:
+        return len(self.dbs)
+
+    def replica_db(self, r: int) -> Database:
+        return self.dbs[r]
+
     @property
     def device(self) -> torch.device:
         """The set's one device (replica 0's tables'); the build lane

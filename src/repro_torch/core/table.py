@@ -57,6 +57,7 @@ row there, ROADMAP.md queue 3 item 1) do not occur.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -384,6 +385,57 @@ def global_rids(local_pages: int, shard: int, n_shards: int,
     return (pages[:, None] * page_size + slots[None, :]).reshape(-1)
 
 
+# Device slices (the mesh's placement): shards [a, b) of the stacked
+# tensors on one device.  On the tensors' own device a slice is a view;
+# on another it is a copy, made once per source tensor and kept in
+# ``_PLACED`` until a mutator writes the tensor in place
+# (``drop_placed``) or the tensor dies.  Index arrays and coverage
+# words are never written in place (a new state is a new tensor), so
+# their copies need no dropping.
+
+_PLACED: dict = {}  # id(source tensor) -> {(a, b, device): copy}
+
+
+def place_rows(x: torch.Tensor, a: int, b: int,
+               device: torch.device) -> torch.Tensor:
+    """Rows [a, b) of ``x``'s leading axis on ``device``: a view where
+    ``x`` lies, else a cached copy with the same stride order (an
+    attribute-major plane stays one unit-stride run)."""
+    part = x[a:b]
+    if part.device == device:
+        return part
+    key = id(x)
+    per = _PLACED.get(key)
+    if per is None:
+        per = _PLACED[key] = {}
+        weakref.finalize(x, _PLACED.pop, key, None)
+    hit = per.get((a, b, device))
+    if hit is None:
+        order = sorted(range(part.dim()), key=lambda d: -part.stride(d))
+        back = [order.index(d) for d in range(part.dim())]
+        hit = per[(a, b, device)] = part.permute(order).contiguous().to(
+            device).permute(back)
+    return hit
+
+
+def drop_placed(*tensors) -> None:
+    """Forget the device copies of tensors just written in place."""
+    for x in tensors:
+        _PLACED.pop(id(x), None)
+
+
+def slice_shards(st: "ShardedTable", a: int, b: int,
+                 device: torch.device) -> "ShardedTable":
+    """Shards [a, b) of ``st`` as a ``ShardedTable`` on ``device``
+    (``place_rows``).  Its ``n_rows`` stays the GLOBAL watermark; the
+    caller keeps the slice's first shard id and the global shard count
+    (local page ``pg`` of shard s is global page ``pg * S + s``)."""
+    return ShardedTable(place_rows(st.data, a, b, device),
+                        place_rows(st.begin_ts, a, b, device),
+                        place_rows(st.end_ts, a, b, device),
+                        st.local_pages[a:b], st.local_rows[a:b], st.n_rows)
+
+
 def stack_shards(shards: Sequence[Table], n_rows: int) -> ShardedTable:
     """Stack per-shard ``Table``s (a pre-sharded layout, as the
     reference's ``ShardedTable(shards, n_rows)``) into one padded
@@ -492,6 +544,7 @@ def sharded_insert_rows(st: ShardedTable, rows, ts, n_new: int,
         rows_view(st.data)[slots] = rows[ok]
         st.begin_ts.view(-1)[slots] = int(ts)
         st.end_ts.view(-1)[slots] = INF_TS
+        drop_placed(st.data, st.begin_ts, st.end_ts)
     n_rows = min(base + n_new, st.capacity)
     local = tuple(local_n_rows(n_rows, s, S, psz, lp)
                   for s, lp in enumerate(st.local_pages))
@@ -518,6 +571,7 @@ def sharded_update_rows(st: ShardedTable, attrs: tuple, los, his, set_attrs,
         return st, 0
     slots = _stacked_slots(st, rids)
     st.end_ts.view(-1)[slots] = ts  # terminate the old versions
+    drop_placed(st.end_ts)
     new_rows = rows_view(st.data)[slots]  # a copy
     set_attrs = torch.as_tensor(set_attrs, dtype=torch.long,
                                 device=st.device)

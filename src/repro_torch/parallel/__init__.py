@@ -1,0 +1,2 @@
+"""The storage engine's device mesh (``mesh``): which device owns which
+shards and queries of a batched sharded scan."""

@@ -1,9 +1,9 @@
-"""The open-loop serving front end: arrival streams, SLO-deadline
-burst admission and load-shed backpressure (``admission.py``), and the
-per-phase p50 / p99 / p999 + deadline-miss reporter (``slo.py``).
-
-The reference's ``serving`` package also holds the LM stack's request
-scheduler and prefix cache; the port has not reached the LM stack."""
+"""Serving substrate: the request scheduler (``scheduler.py``), the
+predictively managed prefix cache (``prefix_cache.py``: the paper's
+index tuner applied to KV-cache management), and the open-loop front
+end -- arrival streams, SLO-deadline burst admission and load-shed
+backpressure (``admission.py``) plus the per-phase p50 / p99 / p999 +
+deadline-miss reporter (``slo.py``)."""
 from repro_torch.serving.admission import (
     BurstDecision,
     backlog_depth,
@@ -11,10 +11,15 @@ from repro_torch.serving.admission import (
     next_burst,
     slo_pressure,
 )
+from repro_torch.serving.prefix_cache import PredictivePrefixCache
+from repro_torch.serving.scheduler import BatchScheduler, Request
 from repro_torch.serving.slo import SloReport, SloSlice, compute_slo
 
 __all__ = [
+    "BatchScheduler",
     "BurstDecision",
+    "PredictivePrefixCache",
+    "Request",
     "SloReport",
     "SloSlice",
     "backlog_depth",

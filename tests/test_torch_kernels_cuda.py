@@ -694,3 +694,56 @@ def test_cuda_replica_burst_launches_on_the_routed_replica_only(cuda):
     for a, b in zip(stats, plain):
         assert a.tier == "kernel"
         assert [getattr(a, f) for f in key] == [getattr(b, f) for f in key]
+
+
+@pytest.mark.parametrize("grid", [(2, 1), (4, 1), (2, 2)],
+                         ids=["d2", "d4", "2x2"])
+def test_cuda_mesh_slices_launch_once_each_and_equal_the_stacked(cuda, grid):
+    """The device mesh on device lists forced to name the one card: every
+    batched family over 4 shards (a divergent per-shard prefix and a
+    scattered coverage bitmap) launches K4 (K3 for the masked family)
+    once per device slice and equals the stacked kernel dispatch; the
+    real device list falls back to it (tier ``kernel``)."""
+    from repro_torch import api as P
+    from repro_torch.core import engine as E
+    from repro_torch.core import index as X
+    from repro_torch.parallel.mesh import force_local_devices
+
+    d, q = grid
+    src = P.make_tuner_db(n_rows=3_000, page_size=128, device=cuda)
+    db = P.Database(dict(src.tables), num_shards=4)
+    bi = db.create_index(P.IndexDescriptor("narrow", (1,)), "vap")
+    for shard, pages in ((0, 3), (3, 4)):
+        db.vap_build_step(bi, pages=pages, shard=shard)
+    st, six = db.tables["narrow"], bi.vap
+    pages = X.eligible_global_pages(st)[1::3]
+    mix = X.build_page_list(X.make_sharded_index(st), st, (1,), pages)
+    cov = X.PageCoverage(4 * st.max_pages, 128, cuda)
+    cov.set_pages(pages)
+    view = cov.view(4, st.max_pages)
+    rng = np.random.default_rng(d * 10 + q)
+    los = torch.tensor(rng.integers(1, 5 * 10**5, size=(8, 1)),
+                       dtype=torch.int32, device=cuda)
+    his, tss = los + 40_000, torch.full((8,), 5, dtype=torch.int32,
+                                        device=cuda)
+    for path in ("table", "hybrid", "hybrid_ps", "hybrid_masked"):
+        ix = mix if path == "hybrid_masked" else six
+        args = (st, path, ix, (1,), (1,), los, his, tss, 2)
+        kw = dict(use_kernel=True,
+                  coverage=view if path == "hybrid_masked" else None)
+        stacked = E.ScanEngine()
+        want = stacked.scan_batch(*args, **kw)
+        assert stacked.last_tier == "kernel"
+        eng = E.ScanEngine()
+        eng.mesh_query_axis = q
+        before = (bfa.sharded_launches, bfa.masked_launches)
+        with force_local_devices([torch.device("cuda", 0)] * (d * q)):
+            got = eng.scan_batch(*args, **kw)
+        torch.cuda.synchronize()
+        launched = (bfa.sharded_launches - before[0],
+                    bfa.masked_launches - before[1])
+        assert eng.last_tier == "shard_map"
+        assert launched == ((0, d * q) if path == "hybrid_masked"
+                            else (d * q, 0)), (path, launched)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), path

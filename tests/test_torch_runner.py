@@ -285,34 +285,8 @@ def test_tuning_beats_disabled_on_stable_read_workload():
 
 
 # ---------------------------------------------------------------------------
-# Options: unported ones raise first; the flat-kwarg shim
+# Options: an unknown async mode raises; the flat-kwarg shim
 # ---------------------------------------------------------------------------
-
-UNPORTED = [  # (group, field, value) of each option that raises
-    ("execution", "mesh", True),
-    ("execution", "mesh_query_axis", 2),
-]
-
-
-@pytest.mark.parametrize("group,name,value", UNPORTED,
-                         ids=["mesh", "mesh_query_axis"])
-def test_unported_option_raises_before_any_state_change(group, name, value):
-    src = port_src()
-    db = P.Database(dict(src.tables))
-    tuner = P.make_dl_tuner(db, "predictive")
-    wl = hybrid("read_heavy")(P, src)
-    # 4 shards and shard-aware tuning: a run would reshard the table
-    # and set the flag first.
-    cfg = P.RunConfig(execution=P.ExecOptions(num_shards=4),
-                      tuning=P.TuningOptions(shard_aware_tuning=True))
-    setattr(getattr(cfg, group), name, value)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        P.run_workload(db, tuner, wl, cfg)
-    assert (db.num_shards, db.clock_ms, db.shard_aware_tuning) == (1, 0.0,
-                                                                    False)
-    assert not db.indexes and not db.monitor.records and tuner.cycles == 0
-    assert isinstance(db.tables["narrow"], P.Table)
-
 
 def test_unknown_async_mode_is_rejected():
     db = P.Database(dict(port_src().tables))

@@ -173,7 +173,8 @@ def test_slo_digest_and_report_equal_reference():
     with pytest.raises(ValueError):
         P_slo.compute_slo([1.0], [0, 1])
     assert set(P_serving.__all__) == {
-        "BurstDecision", "SloReport", "SloSlice", "backlog_depth",
+        "BatchScheduler", "BurstDecision", "PredictivePrefixCache",
+        "Request", "SloReport", "SloSlice", "backlog_depth",
         "compute_slo", "make_arrivals", "next_burst", "slo_pressure"}
 
 
