@@ -171,6 +171,21 @@ Phases, each asserted (any failure exits non-zero):
    or more (a) also runs on the real devices (``real_placement``); (g)
    a ``PredictivePrefixCache`` on the card equals one on the CPU over
    200 cycles of a recurring-prefix stream.
+13. The LM serving path at qwen3-1.7b's published config (28 layers, d
+   2,048, 1,720,567,808 parameters; bf16 compute over f32 masters,
+   random weights from a seeded generator), which launches none of
+   K1-K4: (a) ``repro_torch.launch.serve.main(["--arch",
+   "qwen3-1.7b"])`` on the card serves 24 requests with the covered
+   tokens and cache entries of the ``--smoke`` run on the CPU; (b)
+   decode after ``prefill(prompt[:n])`` equals ``prefill(prompt[:n +
+   1])`` at full width and depth (f32 asserted, bf16 printed beside the
+   reference's 0.05); (c) the card equals the CPU on the same weights
+   (full width, 2 layers, f32: logits and K / V); (d) a 4,096-token
+   prefill (four attention chunks) gives finite logits and a decode
+   step follows; (e) prefill ms at 32 and 4,096 tokens, decode ms per
+   token at batch 1 and the device's busy time per step, the
+   launcher's seconds and peak memory, with the shares of the HBM bound
+   (decode) and the bf16 peak (prefill).
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -2611,6 +2626,256 @@ def prefix_cache_stream(caches):
     return PREFIX_CACHE_CYCLES
 
 
+# Phase 13: the LM serve path at qwen3-1.7b's published config.
+LM_ARCH = "qwen3-1.7b"
+LM_PROMPT = 32               # (b), (c), (e): the launcher's prompt length
+LM_LONG = 4_096              # (d): four ATTN_CHUNKs
+LM_F32_ATOL = 1e-3           # (b): decode against prefill, float32
+LM_CARD_CPU_ATOL = 1e-4      # (c): card against CPU, float32, 2 layers
+LM_REF_BF16_TOL = 0.05       # tests/test_models.py's own tolerance
+LM_DECODE_STEPS = 64         # (e): timed decode steps at batch 1
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+def lm_decode_bytes(cfg, param_count, s_cache) -> int:
+    """Bytes one batch-1 decode step must move: every bf16 weight read
+    once (the tied embedding as the head's matrix; its one gathered row
+    is inside it), every layer's K / V cache read once and the new
+    entry written, and the float32 logits written."""
+    kv = 2 * cfg.n_layers * s_cache * cfg.n_kv_heads * cfg.hd * 2
+    return 2 * param_count + kv + 4 * cfg.vocab_size
+
+
+def lm_prefill_flops(cfg, S) -> int:
+    """Operations a batch-1 prefill of ``S`` tokens needs: the layers'
+    weight products for every token, causal attention's QK^T and PV
+    over the S (S + 1) / 2 visible pairs per head, and the head's
+    product for the last position only."""
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    per_layer = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * cfg.d_ff
+    attn = 2 * 2 * H * hd * (S * (S + 1) // 2)
+    return cfg.n_layers * (2 * S * per_layer + attn) + 2 * d * cfg.vocab_size
+
+
+def phase_lm_serve(torch, card):
+    """Phase 13: the LM serving path at qwen3-1.7b's published config
+    (bf16 compute, f32 masters, random weights from a seeded
+    ``torch.Generator``).  (a) ``repro_torch.launch.serve.main`` on the
+    card, then the ``--smoke`` config on the CPU: 24 served, the same
+    covered tokens and cache entries.  (b) Prefill / decode consistency
+    at full width and depth, B = 2, a 32-token prompt: in f32 asserted
+    within ``LM_F32_ATOL``; in bf16 printed beside the reference's
+    0.05.  (c) Card against CPU, the same weights, full width at 2
+    layers in f32: logits and K / V within ``LM_CARD_CPU_ATOL``.  (d) A
+    4,096-token prefill (four attention chunks) gives finite logits and
+    a decode step follows.  (e) Prefill ms at 32 and 4,096 tokens,
+    decode ms per token at batch 1, the device's busy time of a decode
+    step and of the long prefill (torch.profiler, tables in
+    build/profile/), the launcher's seconds, peak memory, and the shares
+    of the bounds, each beside the card line."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    from repro_torch.models.config import param_count
+    from repro_torch.models.convert import (params_from_reference,
+                                            params_to_numpy)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH)
+    n_params = param_count(cfg)
+    assert n_params == 1_720_567_808, n_params
+
+    # (a) the launcher, on the card at the published config, then the
+    # smoke config on the CPU; its prefix caches are recorded.
+    made = []
+    cache_cls = serve.PredictivePrefixCache
+
+    def record(*a, **k):
+        made.append(cache_cls(*a, **k))
+        return made[-1]
+
+    serve.PredictivePrefixCache = record
+    runs = {}
+    try:
+        for name, argv in (("card", ["--arch", LM_ARCH]),
+                           ("cpu", ["--arch", LM_ARCH, "--smoke",
+                                    "--device", "cpu"])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                result = serve.main(argv)
+            torch.cuda.synchronize()
+            runs[name] = dict(result=result, seconds=time.perf_counter() - t0,
+                              printed=out.getvalue().strip())
+            if name == "card":
+                launcher_peak = torch.cuda.max_memory_allocated()
+    finally:
+        serve.PredictivePrefixCache = cache_cls
+    card_cache, cpu_cache = made
+    (served, covered), cpu_result = runs["card"]["result"], runs["cpu"]["result"]
+    assert served == 24 and cpu_result[0] == 24, runs
+    assert covered == cpu_result[1], runs
+    assert card_cache.device.type == "cuda"
+
+    def entries(c):
+        return {p: (e.length, e.covered_len) for p, e in c.entries.items()}
+
+    assert entries(card_cache) == entries(cpu_cache), (
+        entries(card_cache), entries(cpu_cache))
+    assert card_cache.known_lengths == cpu_cache.known_lengths
+    emit(dict(phase="lm_launcher", arch=LM_ARCH, params=n_params,
+              served=served, covered_tokens=covered,
+              cache_entries=len(card_cache.entries),
+              cpu_smoke=dict(served=cpu_result[0], covered_tokens=cpu_result[1],
+                             cache_entries=len(cpu_cache.entries),
+                             seconds=runs["cpu"]["seconds"]),
+              launcher_seconds=runs["card"]["seconds"],
+              launcher_peak_bytes=launcher_peak,
+              printed=runs["card"]["printed"], card=card))
+    del made, card_cache, cpu_cache
+
+    # (b) prefill / decode consistency at full width and depth.
+    gen = torch.Generator(dev)
+    toks = torch.randint(1, cfg.vocab_size, (2, LM_PROMPT),
+                         generator=gen.manual_seed(5), device=dev,
+                         dtype=torch.int32)
+    errs, scale, fulls = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        model = PM.init_params(c, gen.manual_seed(0), dev)
+        with torch.inference_mode():
+            _, cache = PM.prefill(model, c, {"tokens": toks[:, :-1]},
+                                  s_max=LM_PROMPT)
+            full, _ = PM.prefill(model, c, {"tokens": toks}, s_max=LM_PROMPT)
+            step, _ = PM.decode_step(model, c, toks[:, -1:], cache,
+                                     LM_PROMPT - 1)
+        assert torch.isfinite(step).all() and step.shape == full.shape
+        errs[dtype] = float((step - full).abs().max())
+        scale[dtype] = float(full.abs().max())
+        fulls[dtype] = full
+        # the reference's assert_allclose(rtol=0.05, atol=0.05)
+        allclose = bool(((step - full).abs() <= LM_REF_BF16_TOL * (
+            1 + full.abs())).all())
+        if dtype == "bfloat16":
+            m16 = model  # (d) and (e) run the bf16 model
+        del model, cache
+    assert errs["float32"] <= LM_F32_ATOL, errs
+    emit(dict(phase="lm_consistency", B=2, prompt=LM_PROMPT,
+              layers=cfg.n_layers, f32_max_abs_err=errs["float32"],
+              f32_atol=LM_F32_ATOL, bf16_max_abs_err=errs["bfloat16"],
+              bf16_reference_tol=LM_REF_BF16_TOL,
+              bf16_within_reference_atol=errs["bfloat16"] <= LM_REF_BF16_TOL,
+              bf16_within_reference_allclose=allclose,
+              max_abs_logit=scale,
+              # bf16 rounding at full depth: the same prefill's logits
+              # in bf16 against f32, on the same masters
+              bf16_vs_f32_prefill_max_abs=float(
+                  (fulls["bfloat16"] - fulls["float32"]).abs().max()),
+              card=card))
+    del fulls
+
+    # (c) card against CPU: full width, 2 layers, f32, the same weights.
+    c2 = cfg.scaled(n_layers=2, dtype="float32")
+    cpu_model = PM.init_params(c2, torch.Generator().manual_seed(2), "cpu")
+    card_model = params_from_reference(c2, params_to_numpy(cpu_model), dev)
+    outs = {}
+    for side, model, where in (("cpu", cpu_model, "cpu"),
+                               ("card", card_model, dev)):
+        x = toks.to(where)
+        with torch.inference_mode():
+            logits, cache = PM.prefill(model, c2, {"tokens": x[:, :-1]},
+                                       s_max=LM_PROMPT + 4)
+            step, cache = PM.decode_step(model, c2, x[:, -1:], cache,
+                                         LM_PROMPT - 1)
+        outs[side] = [t.float().cpu() for t in (logits, step, cache["k"],
+                                                cache["v"])]
+    diffs = {name: float((a - b).abs().max()) for name, a, b in zip(
+        ("prefill_logits", "decode_logits", "k", "v"), outs["card"],
+        outs["cpu"])}
+    assert max(diffs.values()) <= LM_CARD_CPU_ATOL, diffs
+    emit(dict(phase="lm_card_vs_cpu", layers=2, dtype="float32",
+              max_abs_err=diffs, atol=LM_CARD_CPU_ATOL, card=card))
+    del cpu_model, card_model, outs
+
+    # (d) the long prompt: four attention chunks, then a decode step.
+    long = torch.randint(1, cfg.vocab_size, (1, LM_LONG),
+                         generator=gen.manual_seed(6), device=dev,
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        logits, cache = PM.prefill(m16, cfg, {"tokens": long},
+                                   s_max=LM_LONG + 8)
+        nxt = logits.argmax(-1).to(torch.int32)[:, None]
+        step, _ = PM.decode_step(m16, cfg, nxt, cache, LM_LONG)
+    assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+    assert step.shape == (1, cfg.vocab_size)
+    del cache
+
+    # (e) times at batch 1, each beside its bound.
+    def prefill_fn(x, s_max):
+        def run():
+            with torch.inference_mode():
+                PM.prefill(m16, cfg, {"tokens": x}, s_max=s_max)
+        return run
+
+    short = long[:, :LM_PROMPT]
+    pre32_ms = cuda_ms(prefill_fn(short, LM_PROMPT + 16), n=20)
+    pre4k_ms = cuda_ms(prefill_fn(long, LM_LONG + 8), n=5, warm=1)
+    _, pre4k_busy_ms, _ = profiled(torch, "lm", "prefill_4096",
+                                   prefill_fn(long, LM_LONG + 8))
+    s_cache = LM_PROMPT + 3 * LM_DECODE_STEPS + 8
+    with torch.inference_mode():
+        _, dcache = PM.prefill(m16, cfg, {"tokens": short}, s_max=s_cache)
+    pos = [LM_PROMPT]
+    tok = short[:, -1:]
+
+    def decode_steps(n):
+        with torch.inference_mode():
+            for _ in range(n):
+                PM.decode_step(m16, cfg, tok, dcache, pos[0])
+                pos[0] += 1
+
+    decode_steps(4)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_steps(LM_DECODE_STEPS)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE_STEPS
+    prof_steps = 8
+    _, busy_ms, kernels = profiled(torch, "lm", "decode",
+                                   lambda: decode_steps(prof_steps))
+    dec_bytes = lm_decode_bytes(cfg, n_params, s_cache)
+    dec_bound = dec_bytes / HBM_BYTES_PER_S * 1e3
+    flops4k = lm_prefill_flops(cfg, LM_LONG)
+    flops32 = lm_prefill_flops(cfg, LM_PROMPT)
+    emit(dict(phase="lm_serve", arch=LM_ARCH, card=card,
+              prefill_32_ms=pre32_ms, prefill_4096_ms=pre4k_ms,
+              decode_ms_per_token=decode_ms,
+              decode_device_busy_ms_per_token=busy_ms / prof_steps,
+              decode_launches_per_token=sum(e.count for e in kernels)
+              / prof_steps,
+              decode_bytes=dec_bytes, decode_bound_ms=dec_bound,
+              decode_share_of_hbm_bound=dec_bound / decode_ms,
+              prefill_4096_flops=flops4k,
+              prefill_4096_bound_ms=flops4k / BF16_FLOPS_PER_S * 1e3,
+              prefill_4096_share_of_bf16_peak=(
+                  flops4k / BF16_FLOPS_PER_S * 1e3 / pre4k_ms),
+              prefill_4096_device_busy_ms=pre4k_busy_ms,
+              prefill_32_bound_ms=flops32 / BF16_FLOPS_PER_S * 1e3,
+              launcher_seconds=runs["card"]["seconds"],
+              launcher_peak_bytes=launcher_peak,
+              phase_peak_bytes=torch.cuda.max_memory_allocated(),
+              seconds=time.perf_counter() - t_phase))
+    del m16, dcache
+    return dict(served=served, covered_tokens=covered)
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -2789,10 +3054,16 @@ def main(argv) -> int:
     mesh = phase_mesh(torch, bfa, fa, initial, record, sharded_refs,
                       loop_b)  # own peak
     del initial
+    bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
+    fa.launches = 0
+    phase_lm_serve(torch, card)  # own peak
+    lm = dict(K1=bfa.launches, K2=fa.launches, K3=bfa.masked_launches,
+              K4=bfa.sharded_launches)
+    assert not any(lm.values()), lm  # the LM path runs no scan kernel
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
               phase8=loop, phase9=base, phase10=lane, phase11=rep,
-              phase12=mesh))
+              phase12=mesh, phase13=lm))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [

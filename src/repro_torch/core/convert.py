@@ -13,7 +13,8 @@ one index 5-tuple per shard; they become the port's stacked
 arrives as its seven fields with the entries in the index form above:
 a plain one becomes a ``VbpState``, a sharded one (the reference's
 tuple of shards) a ``ShardedVbpState`` over the stacked entries.  The
-tests use them to start both packages from one state.
+tests use them to start both packages from one state.  The LM's
+weights cross with ``repro_torch.models.convert``.
 """
 
 from __future__ import annotations

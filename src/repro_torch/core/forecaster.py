@@ -45,6 +45,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.table import resolve_device
+
 EPS = 1e-6
 
 
@@ -58,10 +60,12 @@ class HWState(NamedTuple):
 
 
 def init_state(season_len: int, batch: int | None = None,
-               device="cpu") -> HWState:
+               device=None) -> HWState:
     """Fresh state: level/trend unset (bootstrapped on first obs),
-    seasonal factors start at 1."""
+    seasonal factors start at 1; on ``device``, the card unless the
+    caller names another."""
     shape = () if batch is None else (batch,)
+    device = resolve_device(device)
     return HWState(
         torch.zeros(shape, dtype=torch.float32, device=device),
         torch.zeros(shape, dtype=torch.float32, device=device),
@@ -146,10 +150,10 @@ class ShardHeatForecaster:
     """Per-shard scan-cost forecaster (shard-aware tuning).
 
     One batched Holt-Winters state over a table's shards, on
-    ``device``, observed once per tuning cycle with the monitor's
-    per-shard page-access counters and queried for next-cycle heat, so
-    the tuner can route build quanta to the shards whose scans will
-    cost the most.
+    ``device`` (the card unless the caller names another), observed
+    once per tuning cycle with the monitor's per-shard page-access
+    counters and queried for next-cycle heat, so the tuner can route
+    build quanta to the shards whose scans will cost the most.
     """
 
     def __init__(
@@ -159,7 +163,7 @@ class ShardHeatForecaster:
         alpha: float = 0.5,
         beta: float = 0.3,
         gamma: float = 0.4,
-        device="cpu",
+        device=None,
     ):
         self.n_shards = n_shards
         self.params = (alpha, beta, gamma)

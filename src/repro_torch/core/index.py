@@ -51,7 +51,13 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.table import INF_TS, ShardedTable, Table, place_rows
+from repro_torch.core.table import (
+    INF_TS,
+    ShardedTable,
+    Table,
+    place_rows,
+    resolve_device,
+)
 
 I32_MAX = 2**31 - 1
 I32_MIN = -(2**31)
@@ -629,18 +635,19 @@ class PageCoverage:
     Mutations (crack adoption, hot-range quanta, decay) are host-side
     numpy bit flips between dispatches; each bumps ``version``.  The
     device views (``global_mask``, ``stacked_mask``, ``packed_words``,
-    ``view``) are torch tensors on ``device``, memoised per version, so
-    a bitmap is uploaded once per mutation, not once per scan.
+    ``view``) are torch tensors on ``device`` (the card unless the
+    caller names another), memoised per version, so a bitmap is
+    uploaded once per mutation, not once per scan.
     """
 
     __slots__ = ("built", "version", "max_entry_page", "page_size",
                  "device", "_cache")
 
-    def __init__(self, n_pages: int, page_size: int = 0, device="cpu"):
+    def __init__(self, n_pages: int, page_size: int = 0, device=None):
         self.built = np.zeros(int(n_pages), bool)
         self.version = 0
         self.page_size = int(page_size)  # size accounting (decay cap)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Highest page id entries were ever emitted for (-1: none).
         # The legacy prefix routes are sound only when no entry lies
         # beyond the prefix.
@@ -649,7 +656,7 @@ class PageCoverage:
 
     @classmethod
     def from_prefix(cls, n_pages: int, prefix: int, page_size: int = 0,
-                    device="cpu") -> "PageCoverage":
+                    device=None) -> "PageCoverage":
         cov = cls(n_pages, page_size, device)
         prefix = int(prefix)
         if prefix > 0:

@@ -1,0 +1,12 @@
+"""Model zoo of the port: decoder-only LM backbones over the ten
+configs (``repro_torch.configs``).  The attention families (dense GQA,
+the VLM and audio backbones) run; MoE, the attention + SSM hybrid and
+xLSTM raise ``NotImplementedError`` until the next LM slice.  The
+training loss is left out until the training slice.
+"""
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (LM, decode_step, forward, init_cache,
+                                      init_params, prefill)
+
+__all__ = ["LM", "ModelConfig", "decode_step", "forward", "init_cache",
+           "init_params", "prefill"]

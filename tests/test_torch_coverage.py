@@ -124,8 +124,8 @@ def test_page_coverage_matches_reference():
     for n_pages in (1, 31, 32, 45, 70):
         bits = rng.random(n_pages) < 0.5
         bits[min(31, n_pages - 1)] = True  # the sign bit of word 0
-        rc, pc = R_ix.PageCoverage(n_pages, PSZ), P_ix.PageCoverage(n_pages,
-                                                                     PSZ)
+        rc = R_ix.PageCoverage(n_pages, PSZ)
+        pc = P_ix.PageCoverage(n_pages, PSZ, device="cpu")
         for cov in (rc, pc):
             cov.set_pages(np.flatnonzero(bits))
             cov.clear_pages(np.flatnonzero(bits)[:1])

@@ -151,14 +151,15 @@ def test_forecaster_matches_reference_within_float32_ulps(params):
     steps; the unbatched jitted update, the vmapped batch form and
     forecasts at h in {1, 2, 3} (h * trend exact and not)."""
     rng = np.random.default_rng(0)
-    rs, ps = R_hw.init_state(16), P_hw.init_state(16)
+    rs, ps = R_hw.init_state(16), P_hw.init_state(16, device="cpu")
     for y in rng.uniform(0.0, 3e5, 200):
         rs = R_hw.update(rs, float(y), *params)
         ps = P_hw.update(ps, float(y), *params)
         _assert_hw_equal(rs, ps)
         for h in (1, 3):
             assert float(P_hw.forecast(ps, h)) == float(R_hw.forecast(rs, h))
-    rb, pb = R_hw.init_state(8, batch=64), P_hw.init_state(8, batch=64)
+    rb = R_hw.init_state(8, batch=64)
+    pb = P_hw.init_state(8, batch=64, device="cpu")
     for ys in rng.uniform(0.0, 3e5, (20, 64)).astype(np.float32):
         rb = R_hw.update_batch(rb, ys, *params)
         pb = P_hw.update_batch(pb, ys, *params)

@@ -173,7 +173,7 @@ def test_engine_single_scan_and_unported_paths():
     built = np.zeros(N_PAGES, bool)
     built[[0, 1, 2, 5, 6, 11]] = True
     rcov, pcov = R_ix.PageCoverage(N_PAGES, PSZ), P_ix.PageCoverage(
-        N_PAGES, PSZ)
+        N_PAGES, PSZ, device="cpu")
     for cov in (rcov, pcov):
         cov.set_pages(np.flatnonzero(built))
     rview, pview = rcov.view(1, N_PAGES), pcov.view(1, N_PAGES)

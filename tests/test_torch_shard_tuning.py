@@ -257,7 +257,7 @@ def test_shard_heat_forecaster_matches_reference():
     all ones before the first observation."""
     rng = np.random.default_rng(5)
     rf = R_hw.ShardHeatForecaster(4, season_len=4)
-    pf = P_hw.ShardHeatForecaster(4, season_len=4)
+    pf = P_hw.ShardHeatForecaster(4, season_len=4, device="cpu")
     np.testing.assert_array_equal(pf.predict(), rf.predict())
     assert pf.predict().dtype == np.float64
     heat = [[40.0, 4.0, 4.0, 4.0]] * 3 + [
@@ -294,7 +294,7 @@ def test_shard_heat_forecaster_halfway_sums_match_reference():
         rf = R_hw.ShardHeatForecaster(n, season_len=m, alpha=alpha,
                                       beta=beta, gamma=gamma)
         pf = P_hw.ShardHeatForecaster(n, season_len=m, alpha=alpha,
-                                      beta=beta, gamma=gamma)
+                                      beta=beta, gamma=gamma, device="cpu")
         rf.state, pf.state = rs, ps
         rf.observe(ys)
         pf.observe(ys)
@@ -312,7 +312,7 @@ def test_shard_heat_forecaster_halfway_sums_match_reference():
         np.testing.assert_array_equal(_bits(got),
                                       _bits(R_hw.forecast_batch(rs, 3)))
         rf = R_hw.ShardHeatForecaster(2, season_len=4)
-        pf = P_hw.ShardHeatForecaster(2, season_len=4)
+        pf = P_hw.ShardHeatForecaster(2, season_len=4, device="cpu")
         rf.state, pf.state = rs, ps
         np.testing.assert_array_equal(pf.predict(3), rf.predict(3))
 
