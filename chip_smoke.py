@@ -186,6 +186,17 @@ Phases, each asserted (any failure exits non-zero):
    token at batch 1 and the device's busy time per step, the
    launcher's seconds and peak memory, with the shares of the HBM bound
    (decode) and the bf16 peak (prefill).
+14. The MoE, hybrid and xLSTM families through phase 13's (a)-(e)
+   (``lm_arch_checks``) at their published configs: granite-moe-1b-a400m
+   (24 layers, 32 experts of d_ff 512, top-8; 1,334,628,352
+   parameters), hymba-1.5b (32 layers of attention in a 1,024 window
+   beside a 16-state SSM, then SwiGLU; ``param_count`` 1,259,011,200)
+   and xlstm-350m (12 mLSTM + sLSTM pairs; ``param_count`` 252,888,064),
+   with the share of MoE router choices that agree card against CPU,
+   the decode bound for every expert and for the active parameters, and
+   xLSTM's 4,096-token prefill (its sLSTM a Python loop over time) timed
+   once and not profiled; (f) mixtral-8x22b at full width with 2 of its
+   56 layers, in f32: decode against prefill.  None of K1-K4 runs.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -2626,74 +2637,136 @@ def prefix_cache_stream(caches):
     return PREFIX_CACHE_CYCLES
 
 
-# Phase 13: the LM serve path at qwen3-1.7b's published config.
-LM_ARCH = "qwen3-1.7b"
+# Phases 13-14: the LM serve path at published configs.
+LM_ARCH = "qwen3-1.7b"       # phase 13
+LM_PARAMS = 1_720_567_808    # param_count of qwen3-1.7b
+# Phase 14: the MoE, hybrid and xLSTM families, each at its published
+# config, with its ``param_count`` (the reference's count: the hybrid's
+# leaves out ``w_out`` and the small SSM tensors, xLSTM's is an
+# estimate of 8 d^2 per pair; the model's tensors are counted beside).
+LM_FAMILY_ARCHS = {"granite-moe-1b-a400m": 1_334_628_352,
+                   "hymba-1.5b": 1_259_011_200,
+                   "xlstm-350m": 252_888_064}
+LM_MIXTRAL = "mixtral-8x22b"  # (f): full width, 2 of its 56 layers
+LM_MIXTRAL_LAYERS = 2
+LM_MIXTRAL_PARAMS = 140_630_071_296  # the whole model: past one card
 LM_PROMPT = 32               # (b), (c), (e): the launcher's prompt length
 LM_LONG = 4_096              # (d): four ATTN_CHUNKs
 LM_F32_ATOL = 1e-3           # (b): decode against prefill, float32
-LM_CARD_CPU_ATOL = 1e-4      # (c): card against CPU, float32, 2 layers
+LM_CARD_CPU_ATOL = 1e-4      # (c): card against CPU, f32, 2 layers (rtol too)
 LM_REF_BF16_TOL = 0.05       # tests/test_models.py's own tolerance
 LM_DECODE_STEPS = 64         # (e): timed decode steps at batch 1
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 
 
-def lm_decode_bytes(cfg, param_count, s_cache) -> int:
-    """Bytes one batch-1 decode step must move: every bf16 weight read
-    once (the tied embedding as the head's matrix; its one gathered row
-    is inside it), every layer's K / V cache read once and the new
-    entry written, and the float32 logits written."""
-    kv = 2 * cfg.n_layers * s_cache * cfg.n_kv_heads * cfg.hd * 2
-    return 2 * param_count + kv + 4 * cfg.vocab_size
+def model_tensors(cfg) -> int:
+    """Every parameter of the model (its tensors on the meta device)."""
+    from repro_torch.models import model as PM
+
+    return sum(p.numel() for p in PM.LM(cfg, "meta").parameters())
 
 
-def lm_prefill_flops(cfg, S) -> int:
-    """Operations a batch-1 prefill of ``S`` tokens needs: the layers'
-    weight products for every token, causal attention's QK^T and PV
-    over the S (S + 1) / 2 visible pairs per head, and the head's
-    product for the last position only."""
-    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    per_layer = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * cfg.d_ff
-    attn = 2 * 2 * H * hd * (S * (S + 1) // 2)
-    return cfg.n_layers * (2 * S * per_layer + attn) + 2 * d * cfg.vocab_size
+def lm_decode_bytes(cfg, n_weights, s_cache) -> int:
+    """Bytes one batch-1 decode step must move: ``n_weights`` bf16
+    weights read once (a tied embedding as the head's matrix; its one
+    gathered row is inside it), every layer's K / V cache read once
+    (the new entry's write is in the cache's size), every recurrent
+    state (the hybrid's SSM states, xLSTM's seven) read and written,
+    and the float32 logits written.  The cache's tensors are those
+    ``init_cache`` makes for ``s_cache`` positions."""
+    from repro_torch.models import model as PM
+
+    cache = PM.init_cache(cfg, 1, s_cache, device="meta")
+    state = 0
+    for key, t in cache.items():
+        size = t.numel() * t.element_size()
+        state += size if key in ("k", "v", "pos_ids") else 2 * size
+    return 2 * n_weights + state + 4 * cfg.vocab_size
 
 
-def phase_lm_serve(torch, card):
-    """Phase 13: the LM serving path at qwen3-1.7b's published config
-    (bf16 compute, f32 masters, random weights from a seeded
-    ``torch.Generator``).  (a) ``repro_torch.launch.serve.main`` on the
-    card, then the ``--smoke`` config on the CPU: 24 served, the same
-    covered tokens and cache entries.  (b) Prefill / decode consistency
-    at full width and depth, B = 2, a 32-token prompt: in f32 asserted
-    within ``LM_F32_ATOL``; in bf16 printed beside the reference's
-    0.05.  (c) Card against CPU, the same weights, full width at 2
-    layers in f32: logits and K / V within ``LM_CARD_CPU_ATOL``.  (d) A
-    4,096-token prefill (four attention chunks) gives finite logits and
-    a decode step follows.  (e) Prefill ms at 32 and 4,096 tokens,
-    decode ms per token at batch 1, the device's busy time of a decode
-    step and of the long prefill (torch.profiler, tables in
-    build/profile/), the launcher's seconds, peak memory, and the shares
-    of the bounds, each beside the card line."""
+def lm_prefill_flops(cfg, S, dense_dispatch=False) -> int:
+    """Operations a batch-1 prefill of ``S`` tokens needs: every weight
+    product for every token (MoE: the router and the K chosen experts,
+    or with ``dense_dispatch`` the E x C rows the dispatch computes),
+    causal attention's QK^T and PV over the visible pairs (within the
+    window), the SSM's recurrence and readout (4 d_in N per token),
+    the mLSTM's quadratic form over the causal pairs and the sLSTM's
+    recurrent product, and the head's product for the last position
+    only."""
+    from repro_torch.models import layers as PL
+
+    d, V = cfg.d_model, cfg.vocab_size
+    pairs = S * (S + 1) // 2
+    if cfg.sliding_window > 0 and S > cfg.sliding_window:
+        W = cfg.sliding_window
+        pairs = W * (W + 1) // 2 + (S - W) * W
+    if cfg.family == "ssm":
+        H, d_in = cfg.n_heads, 2 * d
+        hd_s, ff = d // H, PL.slstm_ff(d)
+        per_tok = (d * 2 * d_in + 3 * d_in * d_in + d_in * 2 * H
+                   + d_in * d + d * 4 * d + H * 4 * hd_s * hd_s
+                   + 2 * d * ff)
+        quad = 2 * d_in * pairs  # q.k and weights.v over d_in / H per head
+        return (cfg.n_layers // 2) * (2 * S * per_tok + 2 * quad) + 2 * d * V
+    hd, H, KV = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    per_tok = d * H * hd + 2 * d * KV * hd + H * hd * d
+    layer = 2 * 2 * H * hd * pairs
+    if cfg.family == "moe":
+        E, K, ff = cfg.n_experts, cfg.experts_per_token, cfg.d_ff
+        per_tok += d * E
+        if dense_dispatch:
+            from repro_torch.models.layers import _pick_groups, moe_capacity
+            G = _pick_groups(S)
+            layer += 2 * G * E * moe_capacity(cfg, S // G) * 3 * d * ff
+        else:
+            per_tok += K * 3 * d * ff
+    else:
+        per_tok += 3 * d * cfg.d_ff
+    if cfg.family == "hybrid":
+        d_in, N = d * cfg.ssm_expand, cfg.ssm_state
+        per_tok += (d * 2 * d_in + d_in * (2 * N + 1) + d_in * d
+                    + cfg.ssm_conv * d_in)
+        layer += 2 * S * 2 * d_in * N
+    return cfg.n_layers * (2 * S * per_tok + layer) + 2 * d * V
+
+
+def moe_routes(model):
+    """A context that records the expert ids (T, K) of every MoE call
+    of ``model``, in call order, through the port's own router."""
+    import contextlib
+
+    from repro_torch.models import layers as PL
+
+    @contextlib.contextmanager
+    def ctx():
+        calls = []
+
+        def hook(mod, args):
+            x = args[0]
+            T, d = x.shape[0] * x.shape[1], x.shape[2]
+            _, idx = PL.moe_route(x.reshape(PL._pick_groups(T), -1, d),
+                                  mod.p.router, mod.cfg)
+            calls.append(idx.reshape(T, -1).sort(-1).values.cpu())
+
+        handles = [b.moe.register_forward_pre_hook(hook)
+                   for b in model.blocks
+                   if getattr(b, "moe", None) is not None]
+        try:
+            yield calls
+        finally:
+            for h in handles:
+                h.remove()
+
+    return ctx()
+
+
+def run_launcher(torch, serve, arch):
+    """``serve.main`` on the card at ``arch``'s published config, then
+    on the CPU at its smoke config, with their prefix caches recorded;
+    asserts 24 served and equal covered tokens and entries."""
     import contextlib
     import io
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
-    from repro_torch.models import model as PM
-    from repro_torch.models.config import param_count
-    from repro_torch.models.convert import (params_from_reference,
-                                            params_to_numpy)
-
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t_phase = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    cfg = get_config(LM_ARCH)
-    n_params = param_count(cfg)
-    assert n_params == 1_720_567_808, n_params
-
-    # (a) the launcher, on the card at the published config, then the
-    # smoke config on the CPU; its prefix caches are recorded.
     made = []
     cache_cls = serve.PredictivePrefixCache
 
@@ -2704,8 +2777,8 @@ def phase_lm_serve(torch, card):
     serve.PredictivePrefixCache = record
     runs = {}
     try:
-        for name, argv in (("card", ["--arch", LM_ARCH]),
-                           ("cpu", ["--arch", LM_ARCH, "--smoke",
+        for name, argv in (("card", ["--arch", arch]),
+                           ("cpu", ["--arch", arch, "--smoke",
                                     "--device", "cpu"])):
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -2715,7 +2788,7 @@ def phase_lm_serve(torch, card):
             runs[name] = dict(result=result, seconds=time.perf_counter() - t0,
                               printed=out.getvalue().strip())
             if name == "card":
-                launcher_peak = torch.cuda.max_memory_allocated()
+                runs[name]["peak"] = torch.cuda.max_memory_allocated()
     finally:
         serve.PredictivePrefixCache = cache_cls
     card_cache, cpu_cache = made
@@ -2730,44 +2803,110 @@ def phase_lm_serve(torch, card):
     assert entries(card_cache) == entries(cpu_cache), (
         entries(card_cache), entries(cpu_cache))
     assert card_cache.known_lengths == cpu_cache.known_lengths
-    emit(dict(phase="lm_launcher", arch=LM_ARCH, params=n_params,
-              served=served, covered_tokens=covered,
-              cache_entries=len(card_cache.entries),
-              cpu_smoke=dict(served=cpu_result[0], covered_tokens=cpu_result[1],
-                             cache_entries=len(cpu_cache.entries),
+    runs["entries"] = len(card_cache.entries)
+    runs["cpu_entries"] = len(cpu_cache.entries)
+    return runs
+
+
+def lm_consistency(torch, cfg, toks, dev, dtypes=("float32", "bfloat16")):
+    """(b): decode after ``prefill(prompt[:-1])`` against
+    ``prefill(prompt)`` on one model per dtype (seed 0).  Returns the
+    errors, logit scales and prefills per dtype, and the bf16 model
+    (None without bf16), with the reference's allclose flag."""
+    from repro_torch.models import model as PM
+
+    gen = torch.Generator(dev)
+    S = toks.shape[1]
+    errs, scale, fulls, allclose, m16 = {}, {}, {}, None, None
+    for dtype in dtypes:
+        c = cfg.scaled(dtype=dtype)
+        model = PM.init_params(c, gen.manual_seed(0), dev)
+        with torch.inference_mode():
+            _, cache = PM.prefill(model, c, {"tokens": toks[:, :-1]}, s_max=S)
+            full, _ = PM.prefill(model, c, {"tokens": toks}, s_max=S)
+            step, _ = PM.decode_step(model, c, toks[:, -1:], cache, S - 1)
+        assert torch.isfinite(step).all() and step.shape == full.shape
+        errs[dtype] = float((step - full).abs().max())
+        scale[dtype] = float(full.abs().max())
+        fulls[dtype] = full
+        if dtype == "bfloat16":
+            # the reference's assert_allclose(rtol=0.05, atol=0.05)
+            allclose = bool(((step - full).abs() <= LM_REF_BF16_TOL * (
+                1 + full.abs())).all())
+            m16 = model
+        del model, cache
+    assert errs["float32"] <= LM_F32_ATOL, errs
+    return errs, scale, fulls, allclose, m16
+
+
+def lm_arch_checks(torch, card, arch, want_params, long_reps=5,
+                   profile_long=True):
+    """(a)-(e) of phases 13 and 14 for one architecture at its published
+    config (bf16 compute, f32 masters, random weights from a seeded
+    ``torch.Generator``).  (a) ``repro_torch.launch.serve.main`` on the
+    card, then the ``--smoke`` config on the CPU: 24 served, the same
+    covered tokens and cache entries; ``param_count`` asserted.  (b)
+    Prefill / decode consistency at full width and depth, B = 2, a
+    32-token prompt: in f32 asserted within ``LM_F32_ATOL``; in bf16
+    printed beside the reference's 0.05.  (c) Card against CPU, the
+    same weights, full width at 2 layers (1 xLSTM pair) in f32: logits
+    and every cache tensor within ``LM_CARD_CPU_ATOL`` as rtol and atol,
+    after the share of MoE router choices that agree.  (d) A 4,096-token prefill gives
+    finite logits and a decode step follows.  (e) Prefill ms at 32 and
+    4,096 tokens (``long_reps`` timed runs after (d); with one, (d)'s
+    own run), decode ms per token at batch 1, the device's busy time
+    and launches of a decode step (and, with ``profile_long``, of the
+    long prefill) under torch.profiler (tables in build/profile/), the
+    launcher's seconds, peak memory, and the shares of the bounds, each
+    beside the card line.  Returns the launcher's results."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as PM
+    from repro_torch.models.config import active_param_count, param_count
+    from repro_torch.models.convert import (params_from_reference,
+                                            params_to_numpy)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_arch = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    n_params = param_count(cfg)
+    assert n_params == want_params, (arch, n_params)
+    tensors = model_tensors(cfg)
+
+    marks = {}  # seconds of each step
+
+    def mark(step, t=[t_arch]):
+        now = time.perf_counter()
+        marks[step] = now - t[0]
+        t[0] = now
+
+    # (a) the launcher, on the card at the published config, then the
+    # smoke config on the CPU.
+    runs = run_launcher(torch, serve, arch)
+    mark("a")
+    served, covered = runs["card"]["result"]
+    launcher_peak = runs["card"]["peak"]
+    emit(dict(phase="lm_launcher", arch=arch, family=cfg.family,
+              params=n_params, tensors=tensors, served=served,
+              covered_tokens=covered, cache_entries=runs["entries"],
+              cpu_smoke=dict(served=runs["cpu"]["result"][0],
+                             covered_tokens=runs["cpu"]["result"][1],
+                             cache_entries=runs["cpu_entries"],
                              seconds=runs["cpu"]["seconds"]),
               launcher_seconds=runs["card"]["seconds"],
               launcher_peak_bytes=launcher_peak,
               printed=runs["card"]["printed"], card=card))
-    del made, card_cache, cpu_cache
 
     # (b) prefill / decode consistency at full width and depth.
     gen = torch.Generator(dev)
     toks = torch.randint(1, cfg.vocab_size, (2, LM_PROMPT),
                          generator=gen.manual_seed(5), device=dev,
                          dtype=torch.int32)
-    errs, scale, fulls = {}, {}, {}
-    for dtype in ("float32", "bfloat16"):
-        c = cfg.scaled(dtype=dtype)
-        model = PM.init_params(c, gen.manual_seed(0), dev)
-        with torch.inference_mode():
-            _, cache = PM.prefill(model, c, {"tokens": toks[:, :-1]},
-                                  s_max=LM_PROMPT)
-            full, _ = PM.prefill(model, c, {"tokens": toks}, s_max=LM_PROMPT)
-            step, _ = PM.decode_step(model, c, toks[:, -1:], cache,
-                                     LM_PROMPT - 1)
-        assert torch.isfinite(step).all() and step.shape == full.shape
-        errs[dtype] = float((step - full).abs().max())
-        scale[dtype] = float(full.abs().max())
-        fulls[dtype] = full
-        # the reference's assert_allclose(rtol=0.05, atol=0.05)
-        allclose = bool(((step - full).abs() <= LM_REF_BF16_TOL * (
-            1 + full.abs())).all())
-        if dtype == "bfloat16":
-            m16 = model  # (d) and (e) run the bf16 model
-        del model, cache
-    assert errs["float32"] <= LM_F32_ATOL, errs
-    emit(dict(phase="lm_consistency", B=2, prompt=LM_PROMPT,
+    errs, scale, fulls, allclose, m16 = lm_consistency(torch, cfg, toks, dev)
+    emit(dict(phase="lm_consistency", arch=arch, B=2, prompt=LM_PROMPT,
               layers=cfg.n_layers, f32_max_abs_err=errs["float32"],
               f32_atol=LM_F32_ATOL, bf16_max_abs_err=errs["bfloat16"],
               bf16_reference_tol=LM_REF_BF16_TOL,
@@ -2780,42 +2919,68 @@ def phase_lm_serve(torch, card):
                   (fulls["bfloat16"] - fulls["float32"]).abs().max()),
               card=card))
     del fulls
+    mark("b")
 
     # (c) card against CPU: full width, 2 layers, f32, the same weights.
     c2 = cfg.scaled(n_layers=2, dtype="float32")
     cpu_model = PM.init_params(c2, torch.Generator().manual_seed(2), "cpu")
     card_model = params_from_reference(c2, params_to_numpy(cpu_model), dev)
-    outs = {}
+    outs, routes = {}, {}
     for side, model, where in (("cpu", cpu_model, "cpu"),
                                ("card", card_model, dev)):
         x = toks.to(where)
-        with torch.inference_mode():
+        with torch.inference_mode(), moe_routes(model) as calls:
             logits, cache = PM.prefill(model, c2, {"tokens": x[:, :-1]},
                                        s_max=LM_PROMPT + 4)
             step, cache = PM.decode_step(model, c2, x[:, -1:], cache,
                                          LM_PROMPT - 1)
-        outs[side] = [t.float().cpu() for t in (logits, step, cache["k"],
-                                                cache["v"])]
-    diffs = {name: float((a - b).abs().max()) for name, a, b in zip(
-        ("prefill_logits", "decode_logits", "k", "v"), outs["card"],
-        outs["cpu"])}
-    assert max(diffs.values()) <= LM_CARD_CPU_ATOL, diffs
-    emit(dict(phase="lm_card_vs_cpu", layers=2, dtype="float32",
-              max_abs_err=diffs, atol=LM_CARD_CPU_ATOL, card=card))
+        outs[side] = dict(prefill_logits=logits, decode_logits=step,
+                          **cache)
+        routes[side] = calls
+    agree = None
+    if routes["card"]:
+        same = [(a == b).all(-1) for a, b in zip(routes["card"],
+                                                 routes["cpu"])]
+        agree = float(torch.cat(same).float().mean())
+        emit(dict(phase="lm_router_agreement", arch=arch, layers=2,
+                  choices=int(sum(len(s) for s in same)),
+                  agreeing_share=agree, card=card))
+    # allclose(rtol = atol = LM_CARD_CPU_ATOL): the recurrent states
+    # are not normalised (the sLSTM's n is a sum of exponentials), so
+    # each element is held to its own magnitude as well
+    diffs, over, mags = {}, {}, {}
+    for k in outs["cpu"]:
+        a, b = outs["card"][k].float().cpu(), outs["cpu"][k].float()
+        err = (a - b).abs()
+        diffs[k] = float(err.max())
+        mags[k] = float(b.abs().max())
+        over[k] = float((err / (1 + b.abs())).max())
+    assert max(over.values()) <= LM_CARD_CPU_ATOL, (diffs, mags)
+    emit(dict(phase="lm_card_vs_cpu", arch=arch, layers=2, dtype="float32",
+              max_abs_err=diffs, max_abs_value=mags,
+              max_err_over_1_plus_abs=over, rtol=LM_CARD_CPU_ATOL,
+              atol=LM_CARD_CPU_ATOL, router_agreement=agree, card=card))
     del cpu_model, card_model, outs
+    mark("c")
 
     # (d) the long prompt: four attention chunks, then a decode step.
     long = torch.randint(1, cfg.vocab_size, (1, LM_LONG),
                          generator=gen.manual_seed(6), device=dev,
                          dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with torch.inference_mode():
         logits, cache = PM.prefill(m16, cfg, {"tokens": long},
                                    s_max=LM_LONG + 8)
+    torch.cuda.synchronize()
+    first_long_ms = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
         nxt = logits.argmax(-1).to(torch.int32)[:, None]
         step, _ = PM.decode_step(m16, cfg, nxt, cache, LM_LONG)
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
     assert step.shape == (1, cfg.vocab_size)
     del cache
+    mark("d")
 
     # (e) times at batch 1, each beside its bound.
     def prefill_fn(x, s_max):
@@ -2826,9 +2991,15 @@ def phase_lm_serve(torch, card):
 
     short = long[:, :LM_PROMPT]
     pre32_ms = cuda_ms(prefill_fn(short, LM_PROMPT + 16), n=20)
-    pre4k_ms = cuda_ms(prefill_fn(long, LM_LONG + 8), n=5, warm=1)
-    _, pre4k_busy_ms, _ = profiled(torch, "lm", "prefill_4096",
-                                   prefill_fn(long, LM_LONG + 8))
+    if long_reps > 1:
+        pre4k_ms = cuda_ms(prefill_fn(long, LM_LONG + 8), n=long_reps,
+                           warm=1)
+    else:
+        pre4k_ms = first_long_ms  # (d)'s own run, synchronised
+    pre4k_busy_ms = None
+    if profile_long:
+        _, pre4k_busy_ms, _ = profiled(torch, f"lm_{arch}", "prefill_4096",
+                                       prefill_fn(long, LM_LONG + 8))
     s_cache = LM_PROMPT + 3 * LM_DECODE_STEPS + 8
     with torch.inference_mode():
         _, dcache = PM.prefill(m16, cfg, {"tokens": short}, s_max=s_cache)
@@ -2848,32 +3019,113 @@ def phase_lm_serve(torch, card):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODE_STEPS
     prof_steps = 8
-    _, busy_ms, kernels = profiled(torch, "lm", "decode",
+    _, busy_ms, kernels = profiled(torch, f"lm_{arch}", "decode",
                                    lambda: decode_steps(prof_steps))
-    dec_bytes = lm_decode_bytes(cfg, n_params, s_cache)
+    dec_bytes = lm_decode_bytes(cfg, tensors, s_cache)
     dec_bound = dec_bytes / HBM_BYTES_PER_S * 1e3
     flops4k = lm_prefill_flops(cfg, LM_LONG)
     flops32 = lm_prefill_flops(cfg, LM_PROMPT)
-    emit(dict(phase="lm_serve", arch=LM_ARCH, card=card,
-              prefill_32_ms=pre32_ms, prefill_4096_ms=pre4k_ms,
-              decode_ms_per_token=decode_ms,
-              decode_device_busy_ms_per_token=busy_ms / prof_steps,
-              decode_launches_per_token=sum(e.count for e in kernels)
-              / prof_steps,
-              decode_bytes=dec_bytes, decode_bound_ms=dec_bound,
-              decode_share_of_hbm_bound=dec_bound / decode_ms,
-              prefill_4096_flops=flops4k,
-              prefill_4096_bound_ms=flops4k / BF16_FLOPS_PER_S * 1e3,
-              prefill_4096_share_of_bf16_peak=(
-                  flops4k / BF16_FLOPS_PER_S * 1e3 / pre4k_ms),
-              prefill_4096_device_busy_ms=pre4k_busy_ms,
-              prefill_32_bound_ms=flops32 / BF16_FLOPS_PER_S * 1e3,
-              launcher_seconds=runs["card"]["seconds"],
-              launcher_peak_bytes=launcher_peak,
-              phase_peak_bytes=torch.cuda.max_memory_allocated(),
-              seconds=time.perf_counter() - t_phase))
+    mark("e")
+    row = dict(phase="lm_serve", arch=arch, family=cfg.family, card=card,
+               prefill_32_ms=pre32_ms, prefill_4096_ms=pre4k_ms,
+               prefill_4096_first_ms=first_long_ms,
+               prefill_4096_timed_runs=long_reps,
+               decode_ms_per_token=decode_ms,
+               decode_device_busy_ms_per_token=busy_ms / prof_steps,
+               decode_launches_per_token=sum(e.count for e in kernels)
+               / prof_steps,
+               decode_bytes=dec_bytes, decode_bound_ms=dec_bound,
+               decode_share_of_hbm_bound=dec_bound / decode_ms,
+               prefill_4096_flops=flops4k,
+               prefill_4096_bound_ms=flops4k / BF16_FLOPS_PER_S * 1e3,
+               prefill_4096_share_of_bf16_peak=(
+                   flops4k / BF16_FLOPS_PER_S * 1e3 / pre4k_ms),
+               prefill_4096_device_busy_ms=pre4k_busy_ms,
+               prefill_32_bound_ms=flops32 / BF16_FLOPS_PER_S * 1e3,
+               launcher_seconds=runs["card"]["seconds"],
+               launcher_peak_bytes=launcher_peak,
+               phase_peak_bytes=torch.cuda.max_memory_allocated(),
+               seconds=sum(marks.values()), step_seconds=marks)
+    if cfg.family == "moe":
+        # the dense dispatch reads every expert; a token needs K of them
+        active = active_param_count(cfg) + tensors - n_params
+        act_bytes = lm_decode_bytes(cfg, active, s_cache)
+        dense4k = lm_prefill_flops(cfg, LM_LONG, dense_dispatch=True)
+        row.update(active_params=active, decode_active_bytes=act_bytes,
+                   decode_active_bound_ms=act_bytes / HBM_BYTES_PER_S * 1e3,
+                   decode_share_of_active_bound=(
+                       act_bytes / HBM_BYTES_PER_S * 1e3 / decode_ms),
+                   prefill_4096_dense_dispatch_flops=dense4k,
+                   prefill_4096_dense_dispatch_bound_ms=(
+                       dense4k / BF16_FLOPS_PER_S * 1e3))
+    emit(row)
     del m16, dcache
     return dict(served=served, covered_tokens=covered)
+
+
+def phase_lm_serve(torch, card):
+    """Phase 13: the LM serving path at qwen3-1.7b's published config,
+    (a)-(e) of ``lm_arch_checks``, a profiled 4,096-token prefill
+    included."""
+    t_phase = time.perf_counter()
+    out = lm_arch_checks(torch, card, LM_ARCH, LM_PARAMS)
+    emit(dict(phase="lm_phase", of=13, arch=LM_ARCH,
+              seconds=time.perf_counter() - t_phase))
+    return out
+
+
+def phase_lm_families(torch, card):
+    """Phase 14: the MoE, hybrid and xLSTM families at their published
+    configs -- granite-moe-1b-a400m, hymba-1.5b, xlstm-350m -- each
+    through (a)-(e) of ``lm_arch_checks``; xLSTM's long prefill runs
+    its sLSTM as a Python loop over 4,096 steps, so it is timed once
+    (its (d) run) and not profiled.  (f) mixtral-8x22b at full width
+    (d 6,144, 8 experts of d_ff 16,384, top-2, window 4,096) with 2 of
+    its 56 layers, in f32 on the card: decode against prefill as in
+    (b) (the whole model's 140,630,071,296 parameters do not fit one
+    card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import param_count
+
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, want in LM_FAMILY_ARCHS.items():
+        xlstm = get_config(arch).family == "ssm"
+        out[arch] = lm_arch_checks(torch, card, arch, want,
+                                   long_reps=1 if xlstm else 3,
+                                   profile_long=not xlstm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    full = get_config(LM_MIXTRAL)
+    assert param_count(full) == LM_MIXTRAL_PARAMS, param_count(full)
+    cfg = full.scaled(n_layers=LM_MIXTRAL_LAYERS)
+    toks = torch.randint(1, cfg.vocab_size, (2, LM_PROMPT),
+                         generator=torch.Generator(dev).manual_seed(5),
+                         device=dev, dtype=torch.int32)
+    errs, scale, _, _, _ = lm_consistency(torch, cfg, toks, dev,
+                                          dtypes=("float32",))
+    emit(dict(phase="lm_consistency", arch=LM_MIXTRAL, B=2,
+              prompt=LM_PROMPT, layers=cfg.n_layers,
+              f32_max_abs_err=errs["float32"], f32_atol=LM_F32_ATOL,
+              max_abs_logit=scale, tensors=model_tensors(cfg),
+              peak_bytes=torch.cuda.max_memory_allocated(),
+              seconds=time.perf_counter() - t0, card=card))
+    emit(dict(phase="scale_lm_families",
+              reduced=[f"{LM_MIXTRAL}: {LM_MIXTRAL_LAYERS} of "
+                       f"{full.n_layers} layers, f32, decode against "
+                       "prefill only (the whole model's "
+                       f"{LM_MIXTRAL_PARAMS:,} parameters do not fit "
+                       "one card)",
+                       "(c): 2 layers (xLSTM: 1 pair), the CPU side's "
+                       "cost"],
+              note="granite-moe-1b-a400m, hymba-1.5b and xlstm-350m "
+                   "at full width and depth"))
+    emit(dict(phase="lm_phase", of=14, archs=list(LM_FAMILY_ARCHS)
+              + [LM_MIXTRAL], seconds=time.perf_counter() - t_phase))
+    return out
 
 
 def device_busy_us(prof):
@@ -3054,16 +3306,18 @@ def main(argv) -> int:
     mesh = phase_mesh(torch, bfa, fa, initial, record, sharded_refs,
                       loop_b)  # own peak
     del initial
-    bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
-    fa.launches = 0
-    phase_lm_serve(torch, card)  # own peak
-    lm = dict(K1=bfa.launches, K2=fa.launches, K3=bfa.masked_launches,
-              K4=bfa.sharded_launches)
-    assert not any(lm.values()), lm  # the LM path runs no scan kernel
+    lm = {}
+    for of, run in ((13, phase_lm_serve), (14, phase_lm_families)):
+        bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
+        fa.launches = 0
+        run(torch, card)  # own peak
+        lm[of] = dict(K1=bfa.launches, K2=fa.launches,
+                      K3=bfa.masked_launches, K4=bfa.sharded_launches)
+        assert not any(lm[of].values()), lm  # the LM path runs no scan kernel
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
               phase8=loop, phase9=base, phase10=lane, phase11=rep,
-              phase12=mesh, phase13=lm))
+              phase12=mesh, phase13=lm[13], phase14=lm[14]))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [

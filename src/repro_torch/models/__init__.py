@@ -1,8 +1,8 @@
 """Model zoo of the port: decoder-only LM backbones over the ten
-configs (``repro_torch.configs``).  The attention families (dense GQA,
-the VLM and audio backbones) run; MoE, the attention + SSM hybrid and
-xLSTM raise ``NotImplementedError`` until the next LM slice.  The
-training loss is left out until the training slice.
+configs (``repro_torch.configs``): dense GQA, routed-expert MoE, the
+attention + SSM hybrid, xLSTM, and the VLM and audio backbones, each
+with init, forward, prefill and decode.  The training loss is left out
+until the training slice.
 """
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (LM, decode_step, forward, init_cache,

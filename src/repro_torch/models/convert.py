@@ -3,9 +3,10 @@
 ``params_from_reference`` takes the reference's parameter pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side,
 done by the caller, so this module imports nothing of JAX), with every
-layer tensor stacked on a leading ``n_layers`` axis as ``lax.scan``
-wants it, and returns the port's ``LM`` on ``device`` with those
-masters and their compute-dtype copies.  ``params_to_numpy`` is the
+layer tensor stacked on a leading ``n_layers`` axis (``n_layers // 2``
+pairs for xLSTM) as ``lax.scan`` wants it, and returns the port's
+``LM`` on ``device`` with those masters and their compute-dtype
+copies.  ``params_to_numpy`` is the
 reverse.  The database state's converters are ``core/convert.py``.
 """
 
@@ -18,21 +19,24 @@ import torch
 
 from repro_torch.core.table import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import RMSNorm
 from repro_torch.models.model import LM
 
 
 def _slots(model: LM) -> Iterator[Tuple[tuple, list]]:
     """(pytree path, the per-layer parameters stacked there) for every
-    layer tensor of the reference's pytree the model has."""
+    layer tensor of the reference's pytree the model has: a block's own
+    parameter (the hybrid's ``mix``) at ``(name,)``, a norm's scale at
+    ``(norm,)`` and every other sub-module's weight at ``(module,
+    name)`` -- ``attn``, ``mlp``, ``moe``, ``ssm``, and xLSTM's
+    ``mlstm`` / ``slstm``, stacked over its pairs."""
     blocks = list(model.blocks)
-    attn = [b.attn for b in blocks]
-    for name, p in attn[0].named_parameters():
-        yield ("attn", name), [getattr(a, name) for a in attn]
-    yield ("norm1",), [b.norm1.weight for b in blocks]
-    yield ("norm2",), [b.norm2.weight for b in blocks]
-    if blocks[0].mlp is not None:
-        for name, _ in blocks[0].mlp.named_parameters():
-            yield ("mlp", name), [getattr(b.mlp, name) for b in blocks]
+    for name, _ in blocks[0].named_parameters(recurse=False):
+        yield (name,), [getattr(b, name) for b in blocks]
+    for child, mod in blocks[0].named_children():
+        for name, _ in mod.named_parameters():
+            path = (child,) if isinstance(mod, RMSNorm) else (child, name)
+            yield path, [getattr(getattr(b, child), name) for b in blocks]
 
 
 def _top(model: LM):

@@ -1,14 +1,17 @@
-"""Model assembly for the attention families (``dense``, ``vlm``,
-``audio``): the port of ``repro.models.model``'s init / forward /
-prefill / decode.
+"""Model assembly for every family (``dense``, ``moe``, ``hybrid``,
+``ssm``, ``vlm``, ``audio``): the port of ``repro.models.model``'s init
+/ forward / prefill / decode.
 
 The model is an ``nn.Module`` (``LM``: the embedding, an
-``nn.ModuleList`` of ``Block``s and the final norm) holding float32
-master weights; the module-level functions keep the reference's names
-and signatures (``init_params``, ``forward``, ``prefill``,
-``init_cache``, ``decode_step``), with the ``LM`` in the place of the
-reference's parameter pytree.  The layer loop is a Python loop over the
-blocks where the reference runs ``lax.scan``.
+``nn.ModuleList`` of blocks and the final norm) holding float32 master
+weights; the module-level functions keep the reference's names and
+signatures (``init_params``, ``forward``, ``prefill``, ``init_cache``,
+``decode_step``), with the ``LM`` in the place of the reference's
+parameter pytree.  The blocks are ``Block``s (attention, then SwiGLU
+or the routed experts; the hybrid adds a parallel SSM and the mix of
+the two) or, for xLSTM, ``XlstmPair``s (an mLSTM block, then an sLSTM
+block) over ``n_layers // 2`` pairs.  The layer loop is a Python loop
+over the blocks where the reference runs ``lax.scan``.
 
 The reference casts each layer's masters to the compute dtype on every
 call (``_cast_layer``).  A cast is deterministic, so the port casts
@@ -19,14 +22,16 @@ reads the bf16 copies instead of re-reading the float32 masters.
 Prefill computes each layer's q / k / v once, writes K / V into the
 cache and attends with them; the reference computes them twice (once
 for the cache, once inside ``_attention_chunked``), with the same
-result.  The caches keep the reference's layout, a leading layer axis:
-``{"k", "v"}`` of (n_layers, B, S_cache, KV, hd) and, for the SWA ring,
-``"pos_ids"`` (n_layers, S_cache); ``decode_step`` writes its entry
-into them in place.
-
-The ``moe``, ``hybrid`` and ``ssm`` families are the next LM slice
-(ROADMAP queue 1 item 2(c)): every entry point here raises
-``NotImplementedError`` for them before it makes a tensor.
+result.  Likewise the hybrid's SSM state and the mLSTM's (C, n, m)
+state come from the same pass as the block's output, where the
+reference runs a second pass (``_ssm_with_state``,
+``_mlstm_final_state``).  The caches keep the reference's layout, a
+leading layer (or pair) axis: ``{"k", "v"}`` of (n_layers, B, S_cache,
+KV, hd) and, for the SWA ring, ``"pos_ids"`` (n_layers, S_cache); the
+hybrid adds ``"ssm_h"`` / ``"ssm_conv"``; xLSTM holds the seven
+recurrent tensors ``mlstm_C`` / ``_n`` / ``_m`` and ``slstm_h`` / ``_c``
+/ ``_n`` / ``_m``.  ``decode_step`` writes its entry and the new
+states into them in place.
 """
 
 from __future__ import annotations
@@ -42,19 +47,10 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 ATTN_CHUNK = 1024         # query-chunk length for blockwise attention
-PORTED_FAMILIES = ("dense", "vlm", "audio")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(MoE, hybrid and SSM blocks: ROADMAP queue 1 item 2(c)); "
-            f"ported families: {', '.join(PORTED_FAMILIES)}")
 
 
 def _check_cfg(model: "LM", cfg: ModelConfig) -> None:
@@ -67,8 +63,10 @@ def _check_cfg(model: "LM", cfg: ModelConfig) -> None:
 # The module
 # ---------------------------------------------------------------------------
 
-class Block(nn.Module):
-    """One pre-norm transformer block: attention, then SwiGLU."""
+class Block(L.Weights):
+    """One pre-norm block: attention (in parallel with an SSM, mixed by
+    the softmax of ``mix``, for the hybrid), then SwiGLU or the routed
+    experts.  Its own parameter is the hybrid's ``mix`` (2,) logits."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -76,20 +74,45 @@ class Block(nn.Module):
         self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
         self.attn = L.Attention(cfg, dtype, device)
         self.norm2 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
-        self.mlp = (L.SwiGLU(d, cfg.d_ff, dtype, device) if cfg.d_ff > 0
-                    else None)
+        self.moe = L.MoE(cfg, dtype, device) if cfg.family == "moe" else None
+        self.mlp = (L.SwiGLU(d, cfg.d_ff, dtype, device)
+                    if cfg.family != "moe" and cfg.d_ff > 0 else None)
+        hybrid = cfg.family == "hybrid"
+        self.ssm = L.SSM(cfg, dtype, device) if hybrid else None
+        self.register_parameter(
+            "mix", L.master((2,), dtype, device) if hybrid else None)
+
+    def ffn(self, x):
+        """The block's second half on its normed input (or nothing)."""
+        if self.moe is not None:
+            return self.moe(x)
+        if self.mlp is not None:
+            return self.mlp(x)
+        return None
+
+
+class XlstmPair(nn.Module):
+    """One xLSTM pair: a pre-norm mLSTM block, then a pre-norm sLSTM
+    block (which carries its own up-projection: no separate FFN)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+        self.mlstm = L.MLSTM(cfg, dtype, device)
+        self.norm2 = L.RMSNorm(d, cfg.norm_eps, dtype, device)
+        self.slstm = L.SLSTM(cfg, dtype, device)
 
 
 class LM(L.Weights):
-    """Decoder-only LM of an attention family.  Its parameters are
-    uninitialised until ``init_params`` draws them or
-    ``convert.params_from_reference`` copies them in; both end with
-    ``cast_``.  ``.to(device)`` moves the masters and casts anew."""
+    """Decoder-only LM.  Its parameters are uninitialised until
+    ``init_params`` draws them or ``convert.params_from_reference``
+    copies them in; both end with ``cast_``.  ``.to(device)`` moves the
+    masters and casts anew."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         cfg.validate()
-        _check_family(cfg)
         self.cfg = cfg
         pdt = getattr(torch, cfg.param_dtype)
         d, V = cfg.d_model, cfg.vocab_size
@@ -98,8 +121,12 @@ class LM(L.Weights):
             "lm_head", None if cfg.tie_embeddings
             else L.master((d, V), pdt, device))
         self.final_norm = L.RMSNorm(d, cfg.norm_eps, pdt, device)
-        self.blocks = nn.ModuleList(Block(cfg, pdt, device)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "ssm":
+            blocks = (XlstmPair(cfg, pdt, device)
+                      for _ in range(cfg.n_layers // 2))
+        else:
+            blocks = (Block(cfg, pdt, device) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(blocks)
 
     def cast_(self) -> "LM":
         """(Re)make every module's copies in the config's compute dtype."""
@@ -131,15 +158,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     caller names another), drawn from ``generator`` (on that device).
 
     The distributions are the reference's: normal x 1/sqrt(fan_in) for
-    every matrix, 0.02 for the embedding, 1/sqrt(fan_in x n_layers) for
-    ``wo`` and ``w_down``, zeros for the QKV biases, ones for the norms;
-    drawn weight by weight over the layers, in the reference's order.
+    every matrix (fan_in = the weight's second-to-last dimension, so
+    the sLSTM's (H, 4 hd, hd) ``r_gates`` takes 4 hd), 0.02 for the
+    embedding, 1/sqrt(fan_in x n_layers) for ``wo`` and every
+    ``w_down`` (the full ``n_layers`` for xLSTM too, not the pair
+    count), 1/sqrt(k) for the SSM's conv taps; zeros for the QKV
+    biases, ``dt_bias`` and the hybrid's ``mix``, ones for the norms
+    and ``d_skip``, and ``a_log = log(1..N)`` on every channel; drawn
+    weight by weight over the layers, in the reference's order.
     ``jax.random`` and ``torch.Generator`` give different numbers, so no
     draw equals the reference's bit for bit; tests carry the
     reference's weights across with ``convert.params_from_reference``.
     """
     cfg.validate()
-    _check_family(cfg)
     device = resolve_device(device)
     model = LM(cfg, device)
     Lc = cfg.n_layers
@@ -150,30 +181,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             p.normal_(generator=generator).mul_(
                 scale or 1.0 / math.sqrt(fan_in))
 
+    def each(mods, *names, scale=None):
+        for name in names:
+            normal([getattr(m, name) for m in mods], scale)
+
     normal([model.embed], 0.02)
     if model.lm_head is not None:
         normal([model.lm_head])
     blocks = list(model.blocks)
-    attn = [b.attn for b in blocks]
-    H_hd = cfg.n_heads * cfg.hd
-    for name in ("wq", "wk", "wv"):
-        normal([getattr(a, name) for a in attn])
-    normal([a.wo for a in attn], 1.0 / math.sqrt(H_hd * Lc))
-    if cfg.d_ff > 0:
-        mlp = [b.mlp for b in blocks]
-        normal([m.w_gate for m in mlp])
-        normal([m.w_up for m in mlp])
-        normal([m.w_down for m in mlp], 1.0 / math.sqrt(cfg.d_ff * Lc))
-    for a in attn:
-        for name in ("bq", "bk", "bv"):
-            if getattr(a, name) is not None:
-                getattr(a, name).zero_()
-        for name in ("q_norm", "k_norm"):
-            if getattr(a, name) is not None:
-                getattr(a, name).fill_(1.0)
-    for n in [model.final_norm] + [b.norm1 for b in blocks] + [
-            b.norm2 for b in blocks]:
-        n.weight.fill_(1.0)
+    ones = [model.final_norm.weight]
+    for b in blocks:
+        ones += [b.norm1.weight, b.norm2.weight]
+    if cfg.family == "ssm":
+        d_in = 2 * cfg.d_model
+        ml = [b.mlstm for b in blocks]
+        each(ml, "w_up", "wq", "wk", "wv", "w_if")
+        each(ml, "w_down", scale=1.0 / math.sqrt(d_in * Lc))
+        sl = [b.slstm for b in blocks]
+        each(sl, "w_gates", "r_gates", "w_up")
+        each(sl, "w_down",
+             scale=1.0 / math.sqrt(L.slstm_ff(cfg.d_model) * Lc))
+        ones += [m.ln for m in ml] + [s.ln for s in sl]
+    else:
+        attn = [b.attn for b in blocks]
+        each(attn, "wq", "wk", "wv")
+        each(attn, "wo", scale=1.0 / math.sqrt(cfg.n_heads * cfg.hd * Lc))
+        for a in attn:
+            for name in ("bq", "bk", "bv"):
+                if getattr(a, name) is not None:
+                    getattr(a, name).zero_()
+            for name in ("q_norm", "k_norm"):
+                if getattr(a, name) is not None:
+                    ones.append(getattr(a, name))
+        if cfg.family == "moe":
+            moe = [b.moe for b in blocks]
+            each(moe, "router", "w_gate", "w_up")
+            each(moe, "w_down", scale=1.0 / math.sqrt(cfg.d_ff * Lc))
+        elif cfg.d_ff > 0:
+            mlp = [b.mlp for b in blocks]
+            each(mlp, "w_gate", "w_up")
+            each(mlp, "w_down", scale=1.0 / math.sqrt(cfg.d_ff * Lc))
+        if cfg.family == "hybrid":
+            d_in = cfg.d_model * cfg.ssm_expand
+            ssm = [b.ssm for b in blocks]
+            each(ssm, "w_in")
+            each(ssm, "conv_w", scale=1.0 / math.sqrt(cfg.ssm_conv))
+            each(ssm, "w_bcdt")
+            a_log = torch.log(torch.arange(1, cfg.ssm_state + 1,
+                                           dtype=torch.float32,
+                                           device=device))
+            for s in ssm:
+                s.a_log.copy_(a_log.expand(d_in, -1))
+                s.dt_bias.zero_()
+                ones.append(s.d_skip)
+            each(ssm, "w_out", scale=1.0 / math.sqrt(d_in * Lc))
+            for b in blocks:
+                b.mix.zero_()
+    for w in ones:
+        w.fill_(1.0)
     return model.cast_()
 
 
@@ -230,22 +295,63 @@ def _mask_mode(cfg: ModelConfig) -> str:
     return "causal_window" if cfg.sliding_window > 0 else "causal"
 
 
+def _mix(blk: Block, attn_out, ssm_out, dtype):
+    """The hybrid's float32 softmax mix of the two branches."""
+    w = torch.softmax(blk.compute["mix"].float(), dim=-1)
+    return (w[0] * attn_out.float() + w[1] * ssm_out.float()).to(dtype)
+
+
 def _block(x, blk: Block, cfg: ModelConfig, positions, mrope_positions=None,
-           cache_k=None, cache_v=None):
-    """One block over the whole sequence; with ``cache_k`` / ``cache_v``
-    ((B, S_max, KV, hd) views of the layer's cache) its K / V are
-    written into their first S slots."""
+           cache=None):
+    """One block over the whole sequence.  With ``cache`` (the layer's
+    views of the prefill cache: ``k`` / ``v`` of (B, S_max, KV, hd),
+    and for the hybrid ``ssm_h`` / ``ssm_conv``) its K / V are written
+    into their first S slots and its SSM state into the rest."""
     h = blk.norm1(x)
     p = blk.attn.p
     q, k, v = L._qkv(h, p, cfg, positions, mrope_positions)
-    if cache_k is not None:
+    if cache is not None:
         S = k.shape[1]
-        cache_k[:, :S] = k
-        cache_v[:, :S] = v
-    x = x + _attn_out(q, k, v, p, cfg, _mask_mode(cfg))
-    if blk.mlp is not None:
-        x = x + blk.mlp(blk.norm2(x))
-    return x
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    attn_out = _attn_out(q, k, v, p, cfg, _mask_mode(cfg))
+    if blk.ssm is not None:
+        if cache is None:
+            ssm_out = L.ssm_block(h, blk.ssm.p, cfg)
+        else:
+            ssm_out, (h_last, conv_last) = L.ssm_block(h, blk.ssm.p, cfg,
+                                                       with_state=True)
+            cache["ssm_h"].copy_(h_last)
+            cache["ssm_conv"].copy_(conv_last)
+        attn_out = _mix(blk, attn_out, ssm_out, x.dtype)
+    x = x + attn_out
+    ff = blk.ffn(blk.norm2(x))
+    return x if ff is None else x + ff
+
+
+XLSTM_KEYS = ("mlstm_C", "mlstm_n", "mlstm_m",
+              "slstm_h", "slstm_c", "slstm_n", "slstm_m")
+
+
+def _store_xlstm(cache: Dict, states) -> None:
+    """Write a pair's seven recurrent states into its cache views."""
+    for key, val in zip(XLSTM_KEYS, states):
+        cache[key].copy_(val)
+
+
+def _xlstm_pair(x, pair: XlstmPair, cfg: ModelConfig, cache=None):
+    """One mLSTM + sLSTM pair over the whole sequence; with ``cache``
+    (the pair's views of the seven recurrent tensors) the final states
+    are written into it."""
+    h = pair.norm1(x)
+    if cache is None:
+        x = x + L.mlstm_block(h, pair.mlstm.p, cfg)
+        return x + L.slstm_scan(pair.norm2(x), pair.slstm.p, cfg)[0]
+    out, m_state = L.mlstm_block(h, pair.mlstm.p, cfg, with_state=True)
+    x = x + out
+    out, s_state = L.slstm_scan(pair.norm2(x), pair.slstm.p, cfg)
+    _store_xlstm(cache, m_state + s_state)
+    return x + out
 
 
 def _inputs_to_h(model: LM, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -264,10 +370,13 @@ def _positions(batch, B: int, S: int, device):
 
 def forward(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
     """Full-sequence forward; returns final hidden states (B, S, d)."""
-    _check_family(cfg)
     _check_cfg(params, cfg)
     h = _inputs_to_h(params, cfg, batch)
     B, S, _ = h.shape
+    if cfg.family == "ssm":
+        for pair in params.blocks:
+            h = _xlstm_pair(h, pair, cfg)
+        return params.final_norm(h)
     positions = _positions(batch, B, S, h.device)
     mrope = batch.get("mrope_positions") if cfg.family == "vlm" else None
     for blk in params.blocks:
@@ -276,7 +385,7 @@ def forward(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Serving: prefill + decode with the KV cache
+# Serving: prefill + decode with per-family caches
 # ---------------------------------------------------------------------------
 
 def cache_heads(cfg: ModelConfig) -> int:
@@ -286,14 +395,36 @@ def cache_heads(cfg: ModelConfig) -> int:
     return cfg.n_heads if cfg.cache_repeated_kv else cfg.n_kv_heads
 
 
+def _recurrent_cache(cfg: ModelConfig, batch: int, device) -> Dict:
+    """xLSTM's seven zero states, float32, on a leading pair axis."""
+    half, d, H = cfg.n_layers // 2, cfg.d_model, cfg.n_heads
+    hd_m, hd_s = 2 * d // H, d // H
+    shapes = ((hd_m, hd_m), (hd_m,), (), (hd_s,), (hd_s,), (hd_s,), ())
+    return {k: torch.zeros((half, batch, H) + s, dtype=torch.float32,
+                           device=device) for k, s in zip(XLSTM_KEYS, shapes)}
+
+
+def _ssm_cache(cfg: ModelConfig, batch: int, device) -> Dict:
+    """The hybrid's SSM states: ``ssm_h`` float32, ``ssm_conv`` (the
+    last k - 1 raw conv inputs) in the compute dtype."""
+    d_in = cfg.d_model * cfg.ssm_expand
+    return {"ssm_h": torch.zeros((cfg.n_layers, batch, d_in, cfg.ssm_state),
+                                 dtype=torch.float32, device=device),
+            "ssm_conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                                     d_in), dtype=_dtype(cfg), device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                ring: Optional[bool] = None, device=None) -> Dict:
     """An empty cache on ``device`` (the card unless the caller names
-    another): linear over ``s_max`` positions, or, for a sliding window
-    shorter than ``s_max`` (or ``ring=True``), a ring of ``window``
-    entries with their absolute positions (-1 = empty)."""
-    _check_family(cfg)
+    another): for xLSTM the seven zero recurrent states; otherwise K /
+    V linear over ``s_max`` positions, or, for a sliding window shorter
+    than ``s_max`` (or ``ring=True``), a ring of ``window`` entries
+    with their absolute positions (-1 = empty), and for the hybrid the
+    SSM states."""
     device = resolve_device(device)
+    if cfg.family == "ssm":
+        return _recurrent_cache(cfg, batch, device)
     s_cache = s_max
     if ring is None:
         ring = cfg.sliding_window > 0 and s_max > cfg.sliding_window
@@ -305,6 +436,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     if ring:
         cache["pos_ids"] = torch.full((cfg.n_layers, s_cache), -1,
                                       dtype=torch.int32, device=device)
+    if cfg.family == "hybrid":
+        cache.update(_ssm_cache(cfg, batch, device))
     return cache
 
 
@@ -314,32 +447,43 @@ def _logits(params: LM, h) -> torch.Tensor:
     return (h[:, -1] @ params.head()).float()
 
 
+def _layer(cache: Dict, i: int) -> Dict:
+    """Layer (or pair) ``i``'s views of every per-layer cache tensor."""
+    return {k: v[i] for k, v in cache.items()}
+
+
 def prefill(params: LM, cfg: ModelConfig, batch,
             s_max: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-    """Process the prompt; return (next-token logits (B, V), cache) with
-    K / V zero-padded to ``s_max`` positions."""
-    _check_family(cfg)
+    """Process the prompt; return (next-token logits (B, V), cache):
+    K / V zero-padded to ``s_max`` positions (and the hybrid's SSM
+    states after the prompt), or xLSTM's recurrent states after it."""
     _check_cfg(params, cfg)
     h = _inputs_to_h(params, cfg, batch)
     B, S, _ = h.shape
+    if cfg.family == "ssm":
+        cache = _recurrent_cache(cfg, B, h.device)
+        for i, pair in enumerate(params.blocks):
+            h = _xlstm_pair(h, pair, cfg, _layer(cache, i))
+        return _logits(params, h), cache
     s_max = s_max or S
     positions = _positions(batch, B, S, h.device)
     mrope = batch.get("mrope_positions") if cfg.family == "vlm" else None
     shape = (cfg.n_layers, B, s_max, cfg.n_kv_heads, cfg.hd)
     cache = {"k": torch.zeros(shape, dtype=h.dtype, device=h.device),
              "v": torch.zeros(shape, dtype=h.dtype, device=h.device)}
+    if cfg.family == "hybrid":
+        cache.update(_ssm_cache(cfg, B, h.device))
     for i, blk in enumerate(params.blocks):
-        h = _block(h, blk, cfg, positions, mrope, cache["k"][i],
-                   cache["v"][i])
+        h = _block(h, blk, cfg, positions, mrope, _layer(cache, i))
     return _logits(params, h), cache
 
 
 def decode_step(params: LM, cfg: ModelConfig, tokens, cache: Dict,
                 pos: int) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1) int (or embeds (B, 1, d)); pos:
-    position of the new token.  Writes the new K / V into ``cache`` in
-    place; returns (logits (B, V), cache)."""
-    _check_family(cfg)
+    position of the new token.  Writes the new K / V entry and the new
+    recurrent states into ``cache`` in place; returns (logits (B, V),
+    cache)."""
     _check_cfg(params, cfg)
     pos = int(pos)
     dt = _dtype(cfg)
@@ -347,16 +491,36 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, cache: Dict,
         h = tokens.to(dt)             # caller passes an embedding
     else:
         h = params.compute["embed"][tokens.long()]
+    if cfg.family == "ssm":
+        for i, pair in enumerate(params.blocks):
+            c = _layer(cache, i)
+            out, C, n, m = L.mlstm_decode(
+                pair.norm1(h), pair.mlstm.p, cfg, c["mlstm_C"], c["mlstm_n"],
+                c["mlstm_m"])
+            h = h + out
+            out, state = L.slstm_scan(pair.norm2(h), pair.slstm.p, cfg,
+                                      *(c[k] for k in XLSTM_KEYS[3:]))
+            h = h + out
+            _store_xlstm(c, (C, n, m) + state)
+        return _logits(params, h), cache
     B = h.shape[0]
     mrope = None
     if cfg.family == "vlm":
         mrope = torch.full((3, B, 1), pos, dtype=torch.int32, device=h.device)
     pos_ids = cache.get("pos_ids")
     for i, blk in enumerate(params.blocks):
+        hpre = blk.norm1(h)
         attn_out, _, _, _ = L.attention_decode(
-            blk.norm1(h), blk.attn.p, cfg, cache["k"][i], cache["v"][i], pos,
+            hpre, blk.attn.p, cfg, cache["k"][i], cache["v"][i], pos,
             mrope, cache_pos=None if pos_ids is None else pos_ids[i])
+        if blk.ssm is not None:
+            ssm_out, h_new, conv_new = L.ssm_decode(
+                hpre, blk.ssm.p, cfg, cache["ssm_h"][i], cache["ssm_conv"][i])
+            cache["ssm_h"][i] = h_new
+            cache["ssm_conv"][i] = conv_new
+            attn_out = _mix(blk, attn_out, ssm_out, h.dtype)
         h = h + attn_out
-        if blk.mlp is not None:
-            h = h + blk.mlp(blk.norm2(h))
+        ff = blk.ffn(blk.norm2(h))
+        if ff is not None:
+            h = h + ff
     return _logits(params, h), cache
