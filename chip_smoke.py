@@ -197,6 +197,20 @@ Phases, each asserted (any failure exits non-zero):
    xLSTM's 4,096-token prefill (its sLSTM a Python loop over time) timed
    once and not profiled; (f) mixtral-8x22b at full width with 2 of its
    56 layers, in f32: decode against prefill.  None of K1-K4 runs.
+15. The LM training path at qwen3-1.7b's published config
+   (``phase_lm_train``): (a) ``repro_torch.launch.train.main`` for 20
+   steps with two checkpoints (losses and grad norms finite, the loss
+   falling, no recovery, the last checkpoint restoring the state); (b)
+   restore and replay at full width on 2 layers in a deterministic
+   subprocess, a fault injected after the first checkpoint, bit-equal
+   to the clean run; (c) card against CPU at full width on 2 layers in
+   f32 over three steps (loss, grad norm, every gradient, masters and
+   moments), and the 8-bit update on identical inputs (int8 payloads
+   equal); (d) two bf16 steps of granite-moe-1b-a400m, hymba-1.5b (2
+   layers) and xlstm-350m (1 pair) at full width; (e) step ms, tokens
+   per second, the shares of the 6NT and 8NT bounds, a profiled step's
+   launches and device time by part, checkpoint save / restore seconds
+   and bytes, peak memory.  None of K1-K4 runs.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -209,6 +223,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3128,6 +3143,497 @@ def phase_lm_families(torch, card):
     return out
 
 
+# Phase 15: the LM training path at qwen3-1.7b's published config.
+TRAIN_STEPS, TRAIN_SAVE_EVERY = 20, 10  # (a): two checkpoints kept
+TRAIN_BATCH, TRAIN_SEQ = 8, 128         # the launcher's defaults
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 10       # the launcher's schedule
+TRAIN_TIMED_FROM = 2                    # (e): steps after the first two
+TRAIN_REPLAY = dict(layers=2, steps=4, save_every=2, fault_at=3)  # (b)
+TRAIN_C = dict(layers=2, batch=2, steps=3, lr=1e-3)  # (c), f32
+TRAIN_CARD_CPU_TOL = 1e-4               # (c): rtol and atol
+# (d): the other families at full width, 2 layers (xLSTM: 1 pair),
+# batch 2 x 128, two bf16 steps each
+TRAIN_FAMILIES = ("granite-moe-1b-a400m", "hymba-1.5b", "xlstm-350m")
+TRAIN_FAMILY_LAYERS, TRAIN_FAMILY_BATCH = 2, 2
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def run_train_launcher(torch, argv):
+    """``repro_torch.launch.train.main(argv)`` with its step, checkpoint
+    manager and loop recorded: each step's metrics and synchronised
+    seconds, each save's seconds and bytes, the loop's final state,
+    checkpoint manager and recoveries, the losses and what it
+    printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    rec = dict(metrics=[], step_s=[], saves=[])
+    made = (train.make_train_step, train.CheckpointManager,
+            train.FaultTolerantLoop)
+
+    def recording_step(*a, **k):
+        step = made[0](*a, **k)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t0)
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            return state, m
+
+        return timed
+
+    class Ckpt(made[1]):
+        def save(self, step, tree):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = super().save(step, tree)
+            rec["saves"].append(dict(step=step, bytes=dir_bytes(path),
+                                     seconds=time.perf_counter() - t0))
+            return path
+
+    class Loop(made[2]):
+        def run(self, *a, **k):
+            out = super().run(*a, **k)
+            rec["state"], _, rec["recoveries"] = out
+            rec["ckpt"] = self.ckpt
+            return out
+
+    train.make_train_step = recording_step
+    train.CheckpointManager, train.FaultTolerantLoop = Ckpt, Loop
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rec["losses"] = train.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        (train.make_train_step, train.CheckpointManager,
+         train.FaultTolerantLoop) = made
+    rec["seconds"] = time.perf_counter() - t0
+    rec["printed"] = out.getvalue().strip()
+    return rec
+
+
+def train_step_parts(torch, cfg, state, batch, lr, ranges=False):
+    """``make_train_step``'s step, call by call (loss and gradients,
+    clip, AdamW, the serving copies cast anew), each in a profiler range
+    with ``ranges``; returns (state, metrics, clipped gradients)."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import steps as PS
+
+    def rng(name):
+        return record_function(name) if ranges else contextlib.nullcontext()
+
+    with rng("train_loss_and_grads"):
+        loss, grads = PS.value_and_grad(state.params, cfg, batch)
+    with rng("train_clip"):
+        grads, gnorm = PO.clip_by_global_norm(grads, 1.0)
+    with rng("train_adamw"):
+        params, opt = PO.adamw_update(grads, state.opt, state.params, lr)
+    with rng("train_recast"):
+        params.cast_()
+    return (PS.TrainState(params, opt, state.ef),
+            dict(loss=loss, grad_norm=gnorm, lr=lr), grads)
+
+
+def tree_diffs(a_items, b_items):
+    """{path: (max abs difference, max abs value of b, allclose at rtol
+    = atol = TRAIN_CARD_CPU_TOL)} over two trees' (path, leaf) items, a
+    on the card and b on the CPU (a layer leaf stacked)."""
+    import torch
+
+    def host(x):
+        if isinstance(x, list):
+            return torch.stack([t.detach().cpu() for t in x]).float()
+        return x.detach().float().cpu()
+
+    out = {}
+    for (path, a), (pb, b) in zip(a_items, b_items):
+        assert path == pb, (path, pb)
+        a, b = host(a), host(b)
+        err = (a - b).abs()
+        ok = bool((err <= TRAIN_CARD_CPU_TOL * (1 + b.abs())).all())
+        out["/".join(path)] = (float(err.max()), float(b.abs().max()), ok)
+    return out
+
+
+def train_replay_check(out_path):
+    """Phase 15 (b), in a process of its own: deterministic algorithms on
+    (``CUBLAS_WORKSPACE_CONFIG`` set by the caller before CUDA starts),
+    qwen3-1.7b at full width with 2 layers through ``FaultTolerantLoop``
+    and the launcher's train step, once clean and once with a fault
+    injected after the first checkpoint: the final masters and moments
+    must be equal bit for bit, with one recovery.  Writes a JSON
+    summary to ``out_path``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import batched_filter_agg as bfa
+    from repro_torch.kernels import filter_agg as fa
+    from repro_torch.models.convert import tree_items
+    from repro_torch.runtime import CheckpointManager, FaultTolerantLoop
+    from repro_torch.train.optimizer import cosine_schedule
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    dev = torch.device("cuda", 0)
+    r = TRAIN_REPLAY
+    cfg = get_config(LM_ARCH).scaled(n_layers=r["layers"])
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step = make_train_step(cfg, cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                TRAIN_STEPS))
+    tmp = Path(tempfile.mkdtemp(prefix="train_replay_"))
+    runs = {}
+    try:
+        for name, fault_at in (("clean", None), ("fault", r["fault_at"])):
+            armed = {"on": fault_at is not None}
+
+            def injector(s, armed=armed, fault_at=fault_at):
+                if armed["on"] and s == fault_at:
+                    armed["on"] = False
+                    raise RuntimeError("injected node failure")
+
+            state = init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                     device=dev)
+            loop = FaultTolerantLoop(step, CheckpointManager(
+                str(tmp / name), keep=2), save_every=r["save_every"])
+            batches = ({k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                       for b in pipe)
+            t0 = time.perf_counter()
+            state, hist, rec = loop.run(state, batches, r["steps"],
+                                        fault_injector=injector)
+            torch.cuda.synchronize()
+            runs[name] = dict(state=state, recoveries=rec,
+                              losses=[float(m["loss"]) for m in hist],
+                              seconds=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = runs["clean"]["state"], runs["fault"]["state"]
+    unequal = []
+    for ta, tb in ((a.params, b.params), (a.opt.mu, b.opt.mu),
+                   (a.opt.nu, b.opt.nu)):
+        for (path, x), (_, y) in zip(tree_items(ta), tree_items(tb)):
+            xs = x if isinstance(x, list) else [x]
+            ys = y if isinstance(y, list) else [y]
+            if not all(torch.equal(p, q) for p, q in zip(xs, ys)):
+                unequal.append("/".join(path))
+    summary = dict(
+        layers=r["layers"], steps=r["steps"], save_every=r["save_every"],
+        fault_at=r["fault_at"], deterministic=True,
+        cublas_workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+        unequal_leaves=unequal, leaves=len(tree_items(a.params)) * 3,
+        step_equal=int(a.opt.step) == int(b.opt.step) == r["steps"],
+        kernel_launches=bfa.launches + bfa.sharded_launches
+        + bfa.masked_launches + fa.launches,
+        **{f"{k}_{n}": v[k] for n, v in runs.items()
+           for k in ("recoveries", "losses", "seconds")})
+    Path(out_path).write_text(json.dumps(summary))
+
+
+def phase_lm_train(torch, card):
+    """Phase 15: the LM training path at qwen3-1.7b's published config
+    (28 layers, d 2,048, 1,720,567,808 parameters; bf16 compute over
+    float32 masters, seeded random weights), which launches none of
+    K1-K4.  (a) ``repro_torch.launch.train.main(["--arch", "qwen3-1.7b",
+    "--steps", "20", "--save-every", "10", "--ckpt", <tmp>])`` with the
+    launcher's other defaults (batch 8 x 128 of ``TokenPipeline``,
+    cosine schedule 3e-3 with a warm-up of 10, float32 moments): every
+    loss and grad norm finite, the last loss below the first, two
+    checkpoints kept, no recovery; the restore of the last one equals
+    the state.  (b) ``train_replay_check`` in a deterministic
+    subprocess.  (c) Card against CPU at full width with 2 layers in
+    float32, a constant learning rate, batch 2 x 128, three steps from
+    the same state: the loss, the grad norm, every gradient leaf, then
+    the masters and moments allclose at rtol = atol =
+    ``TRAIN_CARD_CPU_TOL``; and ``adamw_update(bits8=True)`` on
+    identical inputs with equal int8 payloads and scales within one
+    ulp.  (d) Two bf16 steps of granite-moe-1b-a400m and hymba-1.5b at
+    full width with 2 layers and xlstm-350m with 1 pair (batch 2 x
+    128): losses within ``(0.5, 2) * ln V`` and finite grad norms.  (e)
+    (a)'s step time (median of the steps after the first two,
+    synchronised), tokens per second, the shares of the 6NT and 8NT
+    bounds at the bf16 peak, a profiled step's launches and device busy
+    time by part (loss and gradients, clip, AdamW, the serving copies'
+    cast), save and restore seconds and bytes, and peak memory."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.config import param_count
+    from repro_torch.models.convert import (nest, train_state_from_reference,
+                                            train_state_to_numpy, tree_items)
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import steps as PS
+    from repro_torch.train.optimizer import cosine_schedule
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH)
+    n_params = param_count(cfg)
+    assert n_params == LM_PARAMS, n_params
+    tensors = model_tensors(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    marks = {}
+
+    def mark(part, t=[t_phase]):
+        now = time.perf_counter()
+        marks[part] = now - t[0]
+        t[0] = now
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_"))
+    try:
+        disk = shutil.disk_usage(tmp)
+        # (a) the launcher at the published config.
+        rec = run_train_launcher(torch, [
+            "--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--save-every",
+            str(TRAIN_SAVE_EVERY), "--ckpt", str(tmp / "a")])
+        losses = rec["losses"]
+        gnorms = [m["grad_norm"] for m in rec["metrics"]]
+        assert len(losses) == TRAIN_STEPS == len(gnorms), rec["printed"]
+        assert all(math.isfinite(x) for x in losses + gnorms), (losses,
+                                                                gnorms)
+        assert losses[-1] < losses[0], losses
+        kept = sorted(p.name for p in (tmp / "a").iterdir())
+        assert kept == [f"step_{TRAIN_SAVE_EVERY - 1:08d}",
+                        f"step_{TRAIN_STEPS - 1:08d}"], kept
+        assert rec["recoveries"] == 0, rec["recoveries"]
+        peak_a = torch.cuda.max_memory_allocated()
+        state = rec["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = rec["ckpt"].restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for (path, x), (_, y) in zip(
+                tree_items(state.params) + tree_items(state.opt.mu)
+                + tree_items(state.opt.nu),
+                tree_items(restored.params) + tree_items(restored.opt.mu)
+                + tree_items(restored.opt.nu)):
+            xs = x if isinstance(x, list) else [x]
+            ys = y if isinstance(y, list) else [y]
+            assert all(torch.equal(p, q) for p, q in zip(xs, ys)), path
+        assert int(restored.opt.step) == TRAIN_STEPS
+        ckpt_bytes = rec["saves"][-1]["bytes"]
+        del restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    all_steps = rec["step_s"]
+    step_ms = statistics.median(all_steps[TRAIN_TIMED_FROM:]) * 1e3
+    emit(dict(phase="lm_train_launcher", arch=LM_ARCH, params=n_params,
+              tensors=tensors, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, losses=losses, grad_norms=gnorms,
+              lrs=[m["lr"] for m in rec["metrics"]],
+              loss_fell=losses[0] - losses[-1], kept=kept,
+              recoveries=rec["recoveries"], saves=rec["saves"],
+              restore_seconds=restore_s, checkpoint_bytes=ckpt_bytes,
+              disk_free_bytes=disk.free, launcher_seconds=rec["seconds"],
+              peak_bytes=peak_a, printed=rec["printed"].splitlines()[-1],
+              card=card))
+    mark("a")
+
+    # (e) a profiled step on (a)'s state, part by part.
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    lr_fn = cosine_schedule(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+    box = {"state": state}
+
+    def one_step():
+        box["state"], _, _ = train_step_parts(
+            torch, cfg, box["state"], batch, lr_fn(box["state"].opt.step),
+            ranges=True)
+
+    prof, busy_ms, kernels = profiled(torch, "lm_train", "step", one_step)
+    launches = sum(e.count for e in kernels)
+    parts = {}
+    for name in ("train_loss_and_grads", "train_clip", "train_adamw",
+                 "train_recast"):
+        _, ks = range_kernels(prof, name)
+        parts[name] = dict(launches=len(ks),
+                           device_ms=sum(us for _, us in ks) / 1e3)
+    # autograd runs the backward pass on a thread of its own, outside
+    # the ranges: it is what the ranges leave of the step
+    parts["backward"] = dict(
+        launches=launches - sum(p["launches"] for p in parts.values()),
+        device_ms=busy_ms - sum(p["device_ms"] for p in parts.values()))
+    del state, box, prof, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound6 = 6 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    bound8 = 8 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    emit(dict(phase="lm_train", arch=LM_ARCH, card=card,
+              step_ms=step_ms, step_ms_all=[s * 1e3 for s in all_steps],
+              tokens_per_step=tokens,
+              tokens_per_s=tokens / (step_ms / 1e3),
+              bound_6nt_ms=bound6, share_of_6nt=bound6 / step_ms,
+              bound_8nt_ms=bound8, share_of_8nt=bound8 / step_ms,
+              profiled_launches=launches, profiled_busy_ms=busy_ms,
+              parts=parts,
+              optimizer_share_of_busy=(parts["train_adamw"]["device_ms"]
+                                       + parts["train_clip"]["device_ms"])
+              / busy_ms,
+              peak_bytes=peak_a))
+    mark("e")
+
+    # (b) restore and replay, deterministic, in a subprocess.
+    out = Path(tempfile.mkdtemp(prefix="train_replay_out_")) / "r.json"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "import chip_smoke; chip_smoke.train_replay_check(sys.argv[1])",
+         str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    replay = json.loads(out.read_text())
+    shutil.rmtree(out.parent, ignore_errors=True)
+    assert replay["unequal_leaves"] == [] and replay["step_equal"], replay
+    assert (replay["recoveries_clean"], replay["recoveries_fault"]) == (0, 1)
+    assert replay["kernel_launches"] == 0, replay
+    emit(dict(phase="lm_train_replay", arch=LM_ARCH, card=card, **replay))
+    mark("b")
+
+    # (c) card against CPU: full width, 2 layers, float32, the same state.
+    c = TRAIN_C
+    c2 = cfg.scaled(n_layers=c["layers"], dtype="float32")
+    cpu = PS.init_train_state(c2, torch.Generator().manual_seed(3),
+                              device="cpu")
+    card_st = train_state_from_reference(c2, train_state_to_numpy(cpu), dev)
+    cpipe = TokenPipeline(c2.vocab_size, TRAIN_SEQ, c["batch"], seed=1)
+    metrics, grad_diffs = [], {}
+    for s in range(c["steps"]):
+        b = cpipe.batch_at(s)
+        out_s = {}
+        for side, where in (("cpu", "cpu"), ("card", dev)):
+            st = cpu if side == "cpu" else card_st
+            batch = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+            lr = torch.tensor(c["lr"], device=where)
+            out_s[side] = train_step_parts(torch, c2, st, batch, lr)
+        cpu, m_cpu, g_cpu = out_s["cpu"]
+        card_st, m_card, g_card = out_s["card"]
+        grad_diffs = tree_diffs(tree_items(g_card), tree_items(g_cpu))
+        metrics.append({k: (float(m_card[k]), float(m_cpu[k]))
+                        for k in ("loss", "grad_norm")})
+    ok_metrics = all(abs(a - b) <= TRAIN_CARD_CPU_TOL * (1 + abs(b))
+                     for m in metrics for a, b in m.values())
+    state_diffs = tree_diffs(
+        tree_items(card_st.params) + tree_items(card_st.opt.mu)
+        + tree_items(card_st.opt.nu),
+        tree_items(cpu.params) + tree_items(cpu.opt.mu)
+        + tree_items(cpu.opt.nu))
+    # 8-bit moments on identical inputs: the CPU's moments quantised,
+    # its last gradients, its masters
+    q8 = PO.AdamWState(cpu.opt.step, *(
+        nest((path, PO._quantize8(m)) for path, m in tree_items(mom))
+        for mom in (cpu.opt.mu, cpu.opt.nu)))
+    both = {}
+    for side, where in (("cpu", "cpu"), ("card", dev)):
+        st = train_state_from_reference(c2, train_state_to_numpy(
+            PS.TrainState(cpu.params, q8)), where)
+        grads = nest((p, g.to(where)) for p, g in tree_items(g_cpu))
+        both[side] = PO.adamw_update(grads, st.opt, st.params,
+                                     torch.tensor(c["lr"], device=where),
+                                     bits8=True)
+    q_unequal, scale_ulps = [], 0
+    for (path, qa), (_, qb) in zip(
+            tree_items(both["card"][1].mu) + tree_items(both["card"][1].nu),
+            tree_items(both["cpu"][1].mu) + tree_items(both["cpu"][1].nu)):
+        if not torch.equal(qa.q.cpu(), qb.q):
+            q_unequal.append("/".join(path))
+        sa, sb = qa.scale.cpu().numpy(), qb.scale.numpy()
+        scale_ulps = max(scale_ulps, int(np.max(np.abs(
+            sa.view(np.int32).astype(np.int64)
+            - sb.view(np.int32).astype(np.int64)))))
+    bits8_masters = tree_diffs(tree_items(both["card"][0]),
+                               tree_items(both["cpu"][0]))
+    emit(dict(phase="lm_train_card_vs_cpu", arch=LM_ARCH, layers=c["layers"],
+              batch=c["batch"], steps=c["steps"], lr=c["lr"],
+              dtype="float32", rtol=TRAIN_CARD_CPU_TOL,
+              atol=TRAIN_CARD_CPU_TOL, metrics=metrics,
+              last_grads=grad_diffs, state=state_diffs,
+              bits8_unequal_payloads=q_unequal,
+              bits8_scale_max_ulps=scale_ulps,
+              bits8_masters_max_abs_err=max(
+                  v[0] for v in bits8_masters.values()), card=card))
+    assert ok_metrics, metrics
+    assert all(v[2] for v in grad_diffs.values()), grad_diffs
+    assert all(v[2] for v in state_diffs.values()), state_diffs
+    assert q_unequal == [] and scale_ulps <= 1, (q_unequal, scale_ulps)
+    assert all(v[2] for v in bits8_masters.values()), bits8_masters
+    del cpu, card_st, both, g_cpu, g_card, out_s
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("c")
+
+    # (d) the MoE, hybrid and xLSTM families, two bf16 steps each.
+    fams = {}
+    for arch in TRAIN_FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fc = get_config(arch).scaled(n_layers=TRAIN_FAMILY_LAYERS)
+        st = PS.init_train_state(fc, torch.Generator(dev).manual_seed(0),
+                                 device=dev)
+        step = PS.make_train_step(fc, cosine_schedule(
+            TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+        fpipe = TokenPipeline(fc.vocab_size, TRAIN_SEQ, TRAIN_FAMILY_BATCH,
+                              seed=0)
+        ms = []
+        for s in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in fpipe.batch_at(s).items()}
+            st, m = step(st, batch)
+            ms.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        lnv = math.log(fc.vocab_size)
+        fams[arch] = dict(layers=fc.n_layers, tensors=model_tensors(fc),
+                          losses=[m["loss"] for m in ms],
+                          grad_norms=[m["grad_norm"] for m in ms],
+                          ln_vocab=lnv, seconds=time.perf_counter() - t0,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+        emit(dict(phase="lm_train_family", arch=arch, card=card,
+                  **fams[arch]))
+        assert all(0.5 * lnv < m["loss"] < 2.0 * lnv
+                   and math.isfinite(m["grad_norm"]) for m in ms), fams[arch]
+        del st, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    mark("d")
+    emit(dict(phase="scale_lm_train",
+              reduced=["(b), (c), (d): 2 layers (xLSTM: 1 pair) at full "
+                       "width; (c), (d): batch 2 x 128",
+                       "mixtral-8x22b not trained: 2 layers at full width "
+                       "with float32 masters, grads and moments are ~86 GB",
+                       "(a): float32 moments (the 8-bit moments diverge, "
+                       "ROADMAP queue 3 item 6)"],
+              note="(a) and (e) at qwen3-1.7b's full width and depth"))
+    emit(dict(phase="lm_phase", of=15, arch=LM_ARCH,
+              seconds=time.perf_counter() - t_phase, step_seconds=marks))
+
+
 def device_busy_us(prof):
     """Microseconds in which the card ran at least one kernel, memcpy or
     memset: the union of the trace's device activity intervals."""
@@ -3307,7 +3813,8 @@ def main(argv) -> int:
                       loop_b)  # own peak
     del initial
     lm = {}
-    for of, run in ((13, phase_lm_serve), (14, phase_lm_families)):
+    for of, run in ((13, phase_lm_serve), (14, phase_lm_families),
+                    (15, phase_lm_train)):
         bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
         fa.launches = 0
         run(torch, card)  # own peak
@@ -3317,7 +3824,8 @@ def main(argv) -> int:
     emit(dict(phase="main_path_launches", K1=k1_launches, K2=k2_launches,
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
               phase8=loop, phase9=base, phase10=lane, phase11=rep,
-              phase12=mesh, phase13=lm[13], phase14=lm[14]))
+              phase12=mesh, phase13=lm[13], phase14=lm[14],
+              phase15=lm[15]))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [

@@ -2,12 +2,14 @@
 
 Port of ``repro.models.config``: the same dataclass, fields, defaults
 and parameter counts, copied (the reference's ``repro.models``
-package imports JAX).  ``remat`` and ``unroll_layers`` are compile
-knobs of XLA (rematerialisation, scan against a Python loop over the
-layers): the port keeps them as fields, so configs stay field-for-field
-equal, and they change no result in eager PyTorch, which always loops
-over its layers.  ``loss_chunk`` serves the training loss, not ported
-yet; ``pad_attn_heads`` pads nothing without a tensor-parallel axis.
+package imports JAX).  ``remat`` checkpoints each layer of the training
+forward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does; ``unroll_layers`` is a compile knob of XLA
+(scan against a Python loop over the layers) that the port keeps as a
+field, so configs stay field-for-field equal: eager PyTorch always
+loops over its layers.  ``loss_chunk`` sets the training loss's chunk
+of positions; ``pad_attn_heads`` pads nothing without a tensor-parallel
+axis.
 
 One dataclass; families select the block type:
 

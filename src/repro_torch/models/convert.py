@@ -1,4 +1,4 @@
-"""Carry LM weights across from the reference package.
+"""Carry LM weights and training state across from the reference package.
 
 ``params_from_reference`` takes the reference's parameter pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side,
@@ -6,13 +6,21 @@ done by the caller, so this module imports nothing of JAX), with every
 layer tensor stacked on a leading ``n_layers`` axis (``n_layers // 2``
 pairs for xLSTM) as ``lax.scan`` wants it, and returns the port's
 ``LM`` on ``device`` with those masters and their compute-dtype
-copies.  ``params_to_numpy`` is the
-reverse.  The database state's converters are ``core/convert.py``.
+copies.  ``params_to_numpy`` is the reverse.
+``train_state_from_reference`` / ``train_state_to_numpy`` do the same
+for a whole training state (masters, the step, AdamW's moments in
+float32 or 8-bit, error feedback).
+
+``param_leaves`` lists the model's masters as the reference's pytree
+leaves, in ``jax.tree.flatten``'s order (dict keys sorted at every
+level), a stacked layer leaf as the list of its layers' tensors; the
+optimizer's moments, the global norm and checkpoints follow that order.
+The database state's converters are ``core/convert.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -85,8 +93,10 @@ def params_from_reference(cfg: ModelConfig, params_np: Dict,
 
 
 def params_to_numpy(model: LM) -> Dict:
-    """The model's master weights in the reference's pytree layout."""
-    out = {k: p.detach().cpu().numpy() for k, p in _top(model).items()}
+    """The model's master weights in the reference's pytree layout
+    (copies: the masters are updated in place)."""
+    out = {k: p.detach().to("cpu", copy=True).numpy()
+           for k, p in _top(model).items()}
     layers: Dict = {}
     for path, params in _slots(model):
         node = layers
@@ -96,3 +106,92 @@ def params_to_numpy(model: LM) -> Dict:
             [p.detach() for p in params]).cpu().numpy()
     out["layers"] = layers
     return out
+
+
+def param_leaves(model: LM) -> List[Tuple[tuple, Any]]:
+    """(pytree path, leaf) of every master in the reference's leaf order
+    (paths sorted, as ``jax.tree.flatten`` sorts dict keys): a top-level
+    tensor as itself, a layer slot as the list of its layers' tensors,
+    which the reference stacks on a leading axis."""
+    leaves = [((name,), p) for name, p in _top(model).items()]
+    leaves += [(("layers",) + path, params) for path, params in _slots(model)]
+    return sorted(leaves, key=lambda kv: kv[0])
+
+
+def tree_items(tree) -> List[Tuple[tuple, Any]]:
+    """(path, leaf) of a nested dict in ``jax.tree.flatten``'s order,
+    or of an ``LM``'s masters (``param_leaves``).  A leaf is whatever is
+    not a dict: a tensor, an array, a ``Quant8`` pair, or ``None``."""
+    if isinstance(tree, LM):
+        return param_leaves(tree)
+    if not isinstance(tree, dict):
+        return [((), tree)]
+    return [((k,) + path, leaf) for k in sorted(tree)
+            for path, leaf in tree_items(tree[k])]
+
+
+def nest(items) -> Dict:
+    """The nested dict of (path, value) pairs."""
+    out: Dict = {}
+    for path, value in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = value
+    return out
+
+
+def _map_state(fn, tree):
+    """``fn`` over a nested dict's array leaves; a ``Quant8``-like pair
+    (q, scale) maps each of its arrays and keeps the port's type."""
+    from repro_torch.train.optimizer import Quant8
+
+    if tree is None:
+        return None
+
+    def one(leaf):
+        if isinstance(leaf, tuple):       # Quant8 of either package
+            q, scale = leaf
+            return Quant8(fn(q), fn(scale))
+        return fn(leaf)
+
+    return nest((path, one(leaf)) for path, leaf in tree_items(tree))
+
+
+def train_state_from_reference(cfg: ModelConfig, state_np, device=None):
+    """The reference's ``TrainState`` as numpy arrays (``params``; ``opt``
+    = (``step``, ``mu``, ``nu``), each moment a float32 array or a
+    ``Quant8(q, scale)`` pair per leaf; ``ef`` or None) as the port's
+    ``TrainState`` on ``device`` (the card unless the caller names
+    another)."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.steps import TrainState
+
+    device = resolve_device(device)
+    params_np, (step, mu, nu), ef = state_np
+
+    def put(arr):  # a copy: the port updates its state in place
+        arr = np.require(arr, requirements=["C", "W"])
+        return torch.from_numpy(arr).to(device, copy=True)
+
+    opt = AdamWState(put(np.asarray(step, np.int32)), _map_state(put, mu),
+                     _map_state(put, nu))
+    return TrainState(params_from_reference(cfg, params_np, device), opt,
+                      _map_state(put, ef))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` in the reference's layout, as numpy
+    arrays (the port's ``TrainState`` / ``AdamWState`` / ``Quant8``
+    tuples, whose fields are the reference's)."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.steps import TrainState
+
+    def host(t):  # a copy, never a view of a tensor updated in place
+        return t.detach().to("cpu", copy=True).numpy()
+
+    opt = state.opt
+    return TrainState(params_to_numpy(state.params),
+                      AdamWState(host(opt.step), _map_state(host, opt.mu),
+                                 _map_state(host, opt.nu)),
+                      _map_state(host, state.ef))

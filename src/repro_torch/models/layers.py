@@ -26,6 +26,7 @@ not carried over.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -39,22 +40,53 @@ from torch import nn
 # ---------------------------------------------------------------------------
 
 def master(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised master weight (inference only: no gradient)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """An uninitialised master weight, which takes a gradient."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Weights(nn.Module):
     """A module whose own parameters are the master weights (the
-    config's ``param_dtype``) and whose ``compute`` dict holds them cast
-    once to the compute dtype by ``cast_``.  The reference casts every
-    layer's masters on every call (``model._cast_layer``); a cast is
-    deterministic, so casting once gives the same numbers.  A copy is
-    made only where the dtypes differ."""
+    config's ``param_dtype``) and whose ``compute`` dict holds them in
+    the compute dtype.  ``bind`` sets the copies the module computes
+    with (subclasses also build their ``p`` tuple there).
+
+    Two kinds of copies are bound.  ``cast_`` binds copies cast once,
+    detached from autograd, which serving reads: the reference casts
+    every layer's masters on every call (``model._cast_layer``), and a
+    cast is deterministic, so casting once gives the same numbers (a
+    copy is made only where the dtypes differ).  ``graph_copies`` binds,
+    for the span of a ``with`` block in grad mode, copies cast inside
+    autograd, so that gradients reach the masters."""
+
+    def bind(self, copies: dict) -> None:
+        self.compute = copies
 
     def cast_(self, dtype: torch.dtype) -> None:
-        self.compute = {n: p.detach().to(dtype)
-                        for n, p in self.named_parameters(recurse=False)}
+        with torch.no_grad():
+            self.bind({n: p.detach().to(dtype)
+                       for n, p in self.named_parameters(recurse=False)})
+
+
+@contextlib.contextmanager
+def graph_copies(module: nn.Module, dtype: torch.dtype):
+    """In grad mode, bind every ``Weights`` module of ``module`` to
+    copies of its masters cast to ``dtype`` inside autograd, as the
+    reference's ``_cast_layer`` casts inside each layer's remat body;
+    the detached copies are bound again on exit.  Without grad mode it
+    changes nothing: the detached copies hold the same numbers."""
+    if not torch.is_grad_enabled():
+        yield
+        return
+    mods = [m for m in module.modules() if isinstance(m, Weights)]
+    kept = [m.compute for m in mods]
+    for m in mods:
+        m.bind({n: p.to(dtype)
+                for n, p in m.named_parameters(recurse=False)})
+    try:
+        yield
+    finally:
+        for m, copies in zip(mods, kept):
+            m.bind(copies)
 
 
 # ---------------------------------------------------------------------------
@@ -268,9 +300,9 @@ class Attention(Weights):
             self.register_parameter(
                 name, master((hd,), dtype, device) if cfg.qk_norm else None)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = AttnParams(*(self.compute.get(f) for f in AttnParams._fields))
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = AttnParams(*(copies.get(f) for f in AttnParams._fields))
 
 
 # ---------------------------------------------------------------------------
@@ -294,9 +326,9 @@ class SwiGLU(Weights):
         self.w_up = master((d, ff), dtype, device)
         self.w_down = master((ff, d), dtype, device)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = MlpParams(**self.compute)
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = MlpParams(**copies)
 
     def forward(self, x):
         return swiglu(x, self.p)
@@ -409,9 +441,9 @@ class MoE(Weights):
         self.w_up = master((E, d, ff), dtype, device)
         self.w_down = master((E, ff, d), dtype, device)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = MoeParams(**self.compute)
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = MoeParams(**copies)
 
     def forward(self, x):
         return moe_ffn(x, self.p, self.cfg)
@@ -558,9 +590,9 @@ class SSM(Weights):
         self.dt_bias = master((d_in,), dtype, device)
         self.w_out = master((d_in, d), dtype, device)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = SsmParams(**self.compute)
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = SsmParams(**copies)
 
 
 # ---------------------------------------------------------------------------
@@ -683,9 +715,9 @@ class MLSTM(Weights):
         self.ln = master((d_in,), dtype, device)
         self.w_down = master((d_in, d), dtype, device)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = MlstmParams(**self.compute)
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = MlstmParams(**copies)
 
 
 class SlstmParams(NamedTuple):
@@ -753,6 +785,6 @@ class SLSTM(Weights):
         self.w_down = master((ff, d), dtype, device)
         self.ln = master((d,), dtype, device)
 
-    def cast_(self, dtype):
-        super().cast_(dtype)
-        self.p = SlstmParams(**self.compute)
+    def bind(self, copies):
+        super().bind(copies)
+        self.p = SlstmParams(**copies)

@@ -14,10 +14,16 @@ block) over ``n_layers // 2`` pairs.  The layer loop is a Python loop
 over the blocks where the reference runs ``lax.scan``.
 
 The reference casts each layer's masters to the compute dtype on every
-call (``_cast_layer``).  A cast is deterministic, so the port casts
-once when the weights are made (``LM.cast_``) and keeps the masters
-beside the copies: the same numbers, and a decode step on the card
-reads the bf16 copies instead of re-reading the float32 masters.
+call (``_cast_layer``).  A cast is deterministic, so for serving the
+port casts once when the weights are made (``LM.cast_``) and keeps the
+masters beside the copies: the same numbers, and a decode step on the
+card reads the bf16 copies instead of re-reading the float32 masters.
+In grad mode (``loss_fn``, the train step) ``forward`` casts each
+layer's copies inside autograd, within the body that ``cfg.remat``
+recomputes in the backward pass (``torch.utils.checkpoint``), as the
+reference casts inside its remat body, and gathers the embedding from
+the float32 master before the cast; the train step casts the serving
+copies anew after each update.
 
 Prefill computes each layer's q / k / v once, writes K / V into the
 cache and attends with them; the reference computes them twice (once
@@ -41,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.table import resolve_device
 from repro_torch.models import layers as L
@@ -152,6 +159,7 @@ class LM(L.Weights):
 # Initialisation
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> LM:
     """A randomly initialised model on ``device`` (the card unless the
@@ -354,10 +362,16 @@ def _xlstm_pair(x, pair: XlstmPair, cfg: ModelConfig, cache=None):
     return x + out
 
 
+def _embed(model: LM, tokens, dtype) -> torch.Tensor:
+    """Token rows gathered from the float32 master, then cast (the
+    reference's order: gradients of repeated tokens sum in float32)."""
+    return model.embed[tokens.long()].to(dtype)
+
+
 def _inputs_to_h(model: LM, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.input_kind == "embeds":
         return batch["embeds"].to(_dtype(cfg))
-    return model.compute["embed"][batch["tokens"].long()]
+    return _embed(model, batch["tokens"], _dtype(cfg))
 
 
 def _positions(batch, B: int, S: int, device):
@@ -368,20 +382,83 @@ def _positions(batch, B: int, S: int, device):
     return positions
 
 
+def _run_layers(model: LM, cfg: ModelConfig, h, layer):
+    """``h`` through every block by ``layer(h, block)``.  In grad mode
+    each block computes with copies cast inside autograd, in a body that
+    ``cfg.remat`` checkpoints (recomputed, cast included, in the
+    backward pass)."""
+    if not torch.is_grad_enabled():
+        for blk in model.blocks:
+            h = layer(h, blk)
+        return h
+    dtype = _dtype(cfg)
+
+    def body(x, blk):
+        with L.graph_copies(blk, dtype):
+            return layer(x, blk)
+
+    for blk in model.blocks:
+        h = (checkpoint(body, h, blk, use_reentrant=False) if cfg.remat
+             else body(h, blk))
+    return h
+
+
 def forward(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
     """Full-sequence forward; returns final hidden states (B, S, d)."""
     _check_cfg(params, cfg)
     h = _inputs_to_h(params, cfg, batch)
     B, S, _ = h.shape
     if cfg.family == "ssm":
-        for pair in params.blocks:
-            h = _xlstm_pair(h, pair, cfg)
+        h = _run_layers(params, cfg, h,
+                        lambda x, pair: _xlstm_pair(x, pair, cfg))
+    else:
+        positions = _positions(batch, B, S, h.device)
+        mrope = batch.get("mrope_positions") if cfg.family == "vlm" else None
+        h = _run_layers(params, cfg, h, lambda x, blk: _block(
+            x, blk, cfg, positions, mrope))
+    with L.graph_copies(params.final_norm, _dtype(cfg)):
         return params.final_norm(h)
-    positions = _positions(batch, B, S, h.device)
-    mrope = batch.get("mrope_positions") if cfg.family == "vlm" else None
-    for blk in params.blocks:
-        h = _block(h, blk, cfg, positions, mrope)
-    return params.final_norm(h)
+
+
+def _head(params: LM, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, V) output projection's master: the tied embedding's
+    transpose, or the untied head."""
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def loss_fn(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Next-token cross-entropy (a float32 scalar), chunked over the
+    sequence: per chunk of ``C = min(cfg.loss_chunk, S)`` positions the
+    logits are a product in the compute dtype, cast to float32, and
+    each position's loss is ``logsumexp - logit[label]`` where
+    ``batch["loss_mask"]`` (if given) is set; the result is the summed
+    loss over ``max(count, 1)``.  Past one chunk each chunk's loss is
+    checkpointed, so the backward pass also holds one chunk's
+    (B, C, V) float32 logits at a time, never the whole sequence's."""
+    h = forward(params, cfg, batch)                    # (B, S, d)
+    B, S, _ = h.shape
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    mask = (torch.ones((B, S), dtype=torch.bool, device=h.device)
+            if mask is None else mask.bool())
+    W = _head(params, cfg).to(_dtype(cfg))             # (d, V)
+    C = min(cfg.loss_chunk, S)
+    if S % C:
+        raise ValueError(f"sequence {S} must divide the loss chunk {C}")
+
+    def one(hx, lx, mx, W):
+        logits = (hx @ W).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lx[..., None])[..., 0]
+        return torch.where(mx, lse - ll, 0.0).sum()
+
+    chunked = S > C and torch.is_grad_enabled()
+    nll = 0.0
+    for i in range(0, S, C):
+        args = (h[:, i:i + C], labels[:, i:i + C], mask[:, i:i + C], W)
+        nll = nll + (checkpoint(one, *args, use_reentrant=False) if chunked
+                     else one(*args))
+    return nll / mask.sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +567,7 @@ def decode_step(params: LM, cfg: ModelConfig, tokens, cache: Dict,
     if cfg.input_kind == "embeds":
         h = tokens.to(dt)             # caller passes an embedding
     else:
-        h = params.compute["embed"][tokens.long()]
+        h = _embed(params, tokens, dt)
     if cfg.family == "ssm":
         for i, pair in enumerate(params.blocks):
             c = _layer(cache, i)

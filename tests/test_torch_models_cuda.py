@@ -196,3 +196,79 @@ def test_moving_a_model_recasts_it(cuda):
 
 def test_launcher_on_the_card(cuda):
     assert serve.main(["--arch", "qwen3-1.7b", "--smoke"]) == (24, 320)
+
+
+# ---------------------------------------------------------------------------
+# Training: one step, card against CPU
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["qwen3_1_7b", "granite_moe_1b_a400m",
+                                  "hymba_1_5b", "xlstm_350m"])
+def test_train_step_on_the_card_matches_the_cpu(name, cuda):
+    """One float32 train step, batch 2 x 32, from the same state
+    (``train_state_from_reference`` of the CPU state's
+    ``train_state_to_numpy``): ``make_train_step``'s loss rtol / atol
+    1e-5 and its moments, every gradient leaf and the global norm rtol /
+    atol 1e-4 (the gradients' sums -- the embedding's and the MoE
+    dispatch's index adds -- run in another order on the card); then
+    the AdamW update on identical inputs (the CPU's clipped gradients on
+    both sides), its masters rtol / atol 1e-5.  The masters after each
+    side's own step are not compared: the first step's update
+    ``g / (|g| + eps)`` turns a gradient difference of 1e-9 near
+    ``eps`` = 1e-8 into one of order 1.  The serving copies follow the
+    masters."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.convert import (nest, train_state_from_reference,
+                                            train_state_to_numpy,
+                                            tree_items)
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import steps as PS
+
+    cfg = CFGS[name]().scaled(dtype="float32")
+    cpu = PS.init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    start = train_state_to_numpy(cpu)
+    b = TokenPipeline(cfg.vocab_size, 32, 2, seed=1).batch_at(0)
+    lr = 1e-3
+    outs = {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        st = train_state_from_reference(cfg, start, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        loss, grads = PS.value_and_grad(st.params, cfg, batch)
+        grads, gnorm = PO.clip_by_global_norm(grads, 1.0)
+        step = PS.make_train_step(cfg, lambda s: torch.tensor(lr))
+        st, m = step(st, batch)
+        outs[side] = (loss, grads, gnorm, st, m)
+    (l_cpu, g_cpu, n_cpu, s_cpu, m_cpu), (l_card, g_card, n_card, s_card,
+                                          m_card) = outs["cpu"], outs["card"]
+    for a, c in ((l_card, l_cpu), (m_card["loss"], m_cpu["loss"])):
+        np.testing.assert_allclose(float(a), float(c), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(n_card), float(n_cpu), **TRAIN_TOL)
+    for (path, a), (_, c) in zip(tree_items(g_card), tree_items(g_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(),
+                                   err_msg=str(path), **TRAIN_TOL)
+    got, want = train_state_to_numpy(s_card), train_state_to_numpy(s_cpu)
+    for part in ("mu", "nu"):
+        for (path, a), (_, c) in zip(tree_items(getattr(got.opt, part)),
+                                     tree_items(getattr(want.opt, part))):
+            np.testing.assert_allclose(a, c, err_msg=f"{part} {path}",
+                                       **TRAIN_TOL)
+    for m in s_card.params.modules():
+        for key, t in getattr(m, "compute", {}).items():
+            assert torch.equal(t, getattr(m, key).detach())
+    # the update on identical inputs
+    updated = {}
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        st = train_state_from_reference(cfg, start, dev)
+        grads = nest((p, g.to(dev)) for p, g in tree_items(g_cpu))
+        params, _ = PO.adamw_update(grads, st.opt, st.params,
+                                    torch.tensor(lr, device=dev))
+        updated[side] = train_state_to_numpy(st._replace(
+            params=params)).params
+    for (path, a), (_, c) in zip(tree_items(updated["card"]),
+                                 tree_items(updated["cpu"])):
+        np.testing.assert_allclose(a, c, err_msg=str(path), rtol=1e-5,
+                                   atol=1e-5)
