@@ -211,6 +211,21 @@ Phases, each asserted (any failure exits non-zero):
    per second, the shares of the 6NT and 8NT bounds, a profiled step's
    launches and device time by part, checkpoint save / restore seconds
    and bytes, peak memory.  None of K1-K4 runs.
+16. The distribution layer with qwen3-1.7b's published train state
+   (``phase_lm_dist``): (a) ``runtime.reshard_state`` onto
+   ``launch.mesh.make_debug_mesh(2, 2, multi_pod=True)`` on 8 entries
+   naming the card, every leaf gathered bit-equal, and the elastic leg
+   (masters saved, restored, resharded onto a 4 x 2 mesh, gathered
+   bit-equal); (c) the pod step (``make_train_step(compress_pod_grads=
+   True)``) card against CPU at full width on 2 layers in f32, three
+   steps held stage by stage on identical inputs (each pod's loss and
+   gradients, the int8 reduction with equal payloads, clip and AdamW);
+   (d) ``repro_torch.launch.dryrun`` over every cell on 16 x 16 and 2 x
+   16 x 16 on ``meta`` (no card), qwen3-1.7b ``train_4k`` counted; (b)
+   20 pod steps on 2 pods at batch 8 x 128 with error feedback, the
+   loss finite and falling; (e) the pod step's ms against phase 15's
+   plain step, ``compressed_psum``'s device time and share, a profiled
+   step's launches, peak memory.  None of K1-K4 runs.
 
 Prints one JSON line per measurement (with each phase's peak device
 memory), then the card line, the kernels line and, last, ``{"ok":
@@ -227,7 +242,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1513,14 +1530,15 @@ def numpy_oracle(db, workload, shared_ts, front=None):
         # no snapshot: drop them once instead of in every check.
         written = cols["begin"] != np.iinfo(np.int32).max
         cols = {k: v[written] for k, v in cols.items()}
-        answers, inner, prefixes = {}, {}, {}
+        inner, prefixes, lock = {}, {}, threading.Lock()
 
         def prefix(counts):  # one slot mask per watermark set
-            if counts not in prefixes:
-                prefixes[counts] = slot_prefix(t, cols["slot"], counts)
-            return prefixes[counts]
+            with lock:
+                if counts not in prefixes:
+                    prefixes[counts] = slot_prefix(t, cols["slot"], counts)
+                return prefixes[counts]
 
-        for i in pending:
+        def check(i):
             q, ts = items[i], log[i]
             c = cols
             if i in before:
@@ -1539,12 +1557,18 @@ def numpy_oracle(db, workload, shared_ts, front=None):
             if q.join_table is not None:
                 # The live rows change only with a write.
                 key = (epochs[i], q.join_inner_attr)
-                if key not in inner:
-                    live = (c["begin"] <= ts) & (ts < c["end"])
-                    inner[key] = np.bincount(
-                        c[q.join_inner_attr][live]).astype(np.int64)
+                with lock:
+                    if key not in inner:
+                        live = (c["begin"] <= ts) & (ts < c["end"])
+                        inner[key] = np.bincount(
+                            c[q.join_inner_attr][live]).astype(np.int64)
                 want = (want[0], numpy_pairs(c, q, ts, inner[key], rows))
-            answers[i] = want
+            return want
+
+        # numpy releases the GIL in its passes over the columns, so the
+        # checks run on every host core.
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            answers = dict(zip(pending, pool.map(check, pending)))
         return answers, len(before), len(built)
 
     front = db if front is None else front
@@ -3632,6 +3656,489 @@ def phase_lm_train(torch, card):
               note="(a) and (e) at qwen3-1.7b's full width and depth"))
     emit(dict(phase="lm_phase", of=15, arch=LM_ARCH,
               seconds=time.perf_counter() - t_phase, step_seconds=marks))
+    return dict(step_ms=step_ms)
+
+
+# Phase 16: the distribution layer at qwen3-1.7b's published train state.
+DIST_PODS = 2                            # (b), (c): make_debug_mesh(2, 2,
+DIST_ENTRIES = 8                         # multi_pod=True) on 8 entries
+DIST_STEPS, DIST_TIMED_FROM = 20, 2      # (b), (e): phase 15 (a)'s depth
+DIST_C = dict(layers=2, batch=2, steps=3, lr=1e-3)   # (c), f32
+DIST_COMPRESS_RANGE = "pod_compressed_psum"
+
+
+def _dist_dryrun():
+    """Phase 16 (d), on the host's CPU with no card: ``repro_torch.
+    launch.dryrun`` lays out every cell on 16 x 16 and on 2 x 16 x 16
+    (``--no-measure``), and counts qwen3-1.7b ``train_4k``'s FLOPs at
+    full depth.  Counting every cell takes minutes of meta-tensor
+    dispatch on a host CPU, which the tests cover at reduced depth."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    summary = {}
+    try:
+        for mesh, argv in (("16x16", ["--all", "--no-measure"]),
+                           ("2x16x16", ["--all", "--multi-pod",
+                                        "--no-measure"]),
+                           ("16x16 counted", ["--arch", "qwen3-1.7b",
+                                              "--shape", "train_4k"])):
+            out = tmp / mesh.replace(" ", "_")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                recs = dryrun.main(argv + ["--out", str(out)])
+            done = [r for r in recs if not r.get("skipped")]
+            summary[mesh] = dict(
+                seconds=time.perf_counter() - t0, records=len(done),
+                files=len(list(out.iterdir())),
+                skipped=len(recs) - len(done),
+                counted=sum(r["flops_counted"] is not None for r in done))
+        summary["qwen3_1_7b_train_4k"] = json.loads(
+            (tmp / "16x16_counted" / "qwen3_1_7b_train_4k_16x16.json")
+            .read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
+def _leaf_equal(torch, gathered, leaf) -> bool:
+    """A gathered leaf against the source (a layer slot layer by layer,
+    with no stacked copy)."""
+    if isinstance(leaf, list):
+        return len(gathered) == len(leaf) and all(
+            torch.equal(g, t) for g, t in zip(gathered, leaf))
+    return torch.equal(gathered, leaf)
+
+
+def _state_bytes(torch, state) -> int:
+    from repro_torch.parallel.sharding import leaves_with_paths
+
+    total = 0
+    for _, leaf in leaves_with_paths(state):
+        for t in (leaf if isinstance(leaf, list) else [leaf]):
+            total += t.numel() * t.element_size()
+    return total
+
+
+class _Recorder:
+    """Within the block, the pod step's per-pod losses and gradients
+    (``steps.value_and_grad``), its reduced gradients before the clip
+    (copies) and every int8 payload with its input (``compression.
+    quantize_int8``) are recorded."""
+
+    def __init__(self):
+        self.grads, self.quant, self.reduced = [], [], None
+
+    def __enter__(self):
+        from repro_torch.models.convert import tree_items
+        from repro_torch.parallel import compression
+        from repro_torch.train import steps as PS
+
+        self._saved = (PS.value_and_grad, PS.clip_by_global_norm,
+                       compression.quantize_int8)
+        vg, clip, quant = self._saved
+
+        def rec_vg(model, cfg, batch):
+            out = vg(model, cfg, batch)
+            self.grads.append(out)
+            return out
+
+        def rec_clip(grads, max_norm):
+            self.reduced = [(p, g.clone()) for p, g in tree_items(grads)]
+            return clip(grads, max_norm)
+
+        def rec_quant(x):
+            q, scale = quant(x)
+            self.quant.append((x.clone(), q, scale))
+            return q, scale
+
+        PS.value_and_grad, PS.clip_by_global_norm = rec_vg, rec_clip
+        compression.quantize_int8 = rec_quant
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.parallel import compression
+        from repro_torch.train import steps as PS
+
+        (PS.value_and_grad, PS.clip_by_global_norm,
+         compression.quantize_int8) = self._saved
+        return False
+
+
+def _dist_card_vs_cpu(torch, cfg, dev, mesh_card):
+    """Phase 16 (c): the pod step on the card and on the CPU, stage by
+    stage on the card's inputs of each stage (an int8 payload moves by a
+    whole step of its block's scale when its input crosses a rounding
+    boundary, so stages are not chained across devices): each pod's loss
+    and gradients from the same masters; the reduction from the card's
+    per-pod gradients and residuals (payloads equal, scales within one
+    ulp); clip and AdamW from the card's reduced gradients."""
+    import numpy as np
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.convert import (nest, train_state_from_reference,
+                                            train_state_to_numpy, tree_items)
+    from repro_torch.parallel import compression
+    from repro_torch.train import optimizer as PO
+    from repro_torch.train import steps as PS
+
+    parts, clock = {}, [time.perf_counter()]
+
+    def lap(part):  # seconds of (c) by part, summed over the steps
+        now = time.perf_counter()
+        parts[part] = parts.get(part, 0.0) + now - clock[0]
+        clock[0] = now
+
+    c = DIST_C
+    c2 = cfg.scaled(n_layers=c["layers"], dtype="float32")
+    cpu0 = PS.init_train_state(c2, torch.Generator().manual_seed(3),
+                               error_feedback=DIST_PODS, device="cpu")
+    card = train_state_from_reference(c2, train_state_to_numpy(cpu0), dev)
+    del cpu0
+    lr = c["lr"]
+    step = PS.make_train_step(c2, lambda s: torch.tensor(lr, device=dev),
+                              compress_pod_grads=True, mesh=mesh_card)
+    pipe = TokenPipeline(c2.vocab_size, TRAIN_SEQ, c["batch"], seed=1)
+
+    def diffs(a_items, b_items, out, tag):
+        """tree_diffs' (max abs difference, max abs value of b, allclose)
+        per leaf, computed on the card: a there, b copied from the CPU."""
+        for (path, a), (pb, b) in zip(a_items, b_items):
+            assert path == pb, (path, pb)
+            a = torch.stack(a) if isinstance(a, list) else a
+            b = torch.stack(b) if isinstance(b, list) else b
+            a, b = a.detach().float(), b.detach().to(dev).float()
+            err = (a - b).abs()
+            ok = bool((err <= TRAIN_CARD_CPU_TOL * (1 + b.abs())).all())
+            out[f"{tag}/{'/'.join(path)}"] = (float(err.max()),
+                                              float(b.abs().max()), ok)
+
+    out, metrics = {}, []
+    n_payloads, unequal_payloads, worst_ulps = 0, 0, 0
+    lap("set_up")
+    for s in range(c["steps"]):
+        b = pipe.batch_at(s)
+        before = train_state_to_numpy(card)        # host copies
+        cpu = train_state_from_reference(c2, before, "cpu")
+        lap("state_to_cpu")
+        with _Recorder() as rec:
+            card, m = step(card, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in b.items()})
+        torch.cuda.synchronize()
+        lap("card_step")
+        # stage 1: each pod's loss and gradients from the same masters
+        sub = {k: torch.from_numpy(v) for k, v in b.items()}
+        mm = dict(step=s, loss_card=[], loss_cpu=[])
+        for i, (loss, grads) in enumerate(rec.grads):
+            cl, cg = PS.value_and_grad(cpu.params, c2,
+                                       PS.pod_batch(sub, i, DIST_PODS))
+            mm["loss_card"].append(float(loss))
+            mm["loss_cpu"].append(float(cl))
+            diffs(tree_items(grads), tree_items(cg), out, f"grads{i}")
+            del cg
+        lap("cpu_grads")
+        # stage 2: the reduction on the card's inputs
+        for x, q, scale in rec.quant:
+            cq, cs = compression.quantize_int8(x.cpu())
+            n_payloads += 1
+            unequal_payloads += int(not torch.equal(q.cpu(), cq))
+            worst_ulps = max(worst_ulps, int(np.max(np.abs(
+                scale.cpu().numpy().view(np.int32).astype(np.int64)
+                - cs.numpy().view(np.int32).astype(np.int64)))))
+        pod_items = [tree_items(g) for _, g in rec.grads]
+        ef_items = [dict(tree_items(e)) for e in cpu.ef]
+        red_cpu, err_cpu = [], [[] for _ in range(DIST_PODS)]
+        for k, (path, _) in enumerate(pod_items[0]):
+            r, errs = compression.compressed_psum(
+                [pi[k][1].cpu() for pi in pod_items],
+                [e[path] for e in ef_items])
+            red_cpu.append((path, r))
+            for i, e in enumerate(errs):
+                err_cpu[i].append((path, e))
+        diffs(rec.reduced, red_cpu, out, "reduced")
+        for i in range(DIST_PODS):
+            diffs(tree_items(card.ef[i]), err_cpu[i], out, f"residual{i}")
+        lap("cpu_reduction")
+        # stage 3: clip and AdamW from the card's reduced gradients
+        grads = nest((p, g.cpu()) for p, g in rec.reduced)
+        grads, gn = PO.clip_by_global_norm(grads, 1.0)
+        params, opt = PO.adamw_update(grads, cpu.opt, cpu.params,
+                                      torch.tensor(lr))
+        mm.update(grad_norm_card=float(m["grad_norm"]),
+                  grad_norm_cpu=float(gn), mean_loss=float(m["loss"]))
+        metrics.append(mm)
+        diffs(tree_items(card.params), tree_items(params), out, "masters")
+        diffs(tree_items(card.opt.mu) + tree_items(card.opt.nu),
+              tree_items(opt.mu) + tree_items(opt.nu), out, "moments")
+        del rec, cpu, params, opt, grads, red_cpu, err_cpu, before
+        lap("cpu_update")
+    pairs = [(x, y) for mm in metrics
+             for x, y in zip(mm["loss_card"] + [mm["grad_norm_card"]],
+                             mm["loss_cpu"] + [mm["grad_norm_cpu"]])]
+    ok_metrics = all(abs(x - y) <= TRAIN_CARD_CPU_TOL * (1 + abs(y))
+                     for x, y in pairs)
+    del card, step
+    return dict(layers=c["layers"], batch=c["batch"], steps=c["steps"],
+                lr=lr, pods=DIST_PODS, metrics=metrics,
+                max_abs_err={k: v[0] for k, v in out.items()},
+                magnitude={k: v[1] for k, v in out.items()},
+                not_close=[k for k, v in out.items() if not v[2]],
+                payloads=n_payloads, unequal_payloads=unequal_payloads,
+                scale_max_ulps=worst_ulps, ok_metrics=ok_metrics,
+                part_seconds=parts)
+
+
+def _dist_placement(torch, cfg, dev, mesh, mesh2):
+    """Phase 16 (a): a train state of ``cfg`` on ``dev`` (float32
+    masters and moments, the moments filled from a seeded generator)
+    split over ``mesh`` by ``reshard_state``; every leaf gathered and
+    compared bit for bit, its slices freed once compared; then the
+    elastic leg: the masters saved by ``CheckpointManager``, restored,
+    resharded onto ``mesh2`` and gathered by ``gather_state``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.parallel.sharding import leaves_with_paths
+    from repro_torch.runtime import (CheckpointManager, gather_state,
+                                     reshard_state)
+    from repro_torch.train import steps as PS
+
+    torch.cuda.reset_peak_memory_stats()
+    state = PS.init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                device=dev)
+    g = torch.Generator(dev).manual_seed(1)
+    with torch.no_grad():
+        for _, leaf in leaves_with_paths(state.opt):
+            if leaf.dtype == torch.float32:
+                leaf.normal_(generator=g)
+    state_bytes = _state_bytes(torch, state)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    placed = reshard_state(mesh, state)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    shard_bytes = sum(t.nbytes() for _, t in leaves_with_paths(placed))
+    after_reshard = torch.cuda.memory_allocated() - base
+    splits, unequal = {}, []
+    t0 = time.perf_counter()
+    for (path, t), (_, leaf) in zip(leaves_with_paths(placed),
+                                    leaves_with_paths(state)):
+        key = "/".join(path)
+        splits[key] = list(t.split_counts)
+        gathered = t.gather()
+        if not _leaf_equal(torch, gathered, leaf):
+            unequal.append(key)
+        del gathered
+        t.shards = ()        # this leaf's slices freed once compared
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del placed
+    tmp = Path(tempfile.mkdtemp(prefix="elastic_ckpt_"))
+    try:
+        disk = shutil.disk_usage(tmp)
+        ck = CheckpointManager(str(tmp), keep=1)
+        t0 = time.perf_counter()
+        path = ck.save(0, state.params)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = dir_bytes(path)
+        t0 = time.perf_counter()
+        restored = ck.restore(state.params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    placed2 = reshard_state(mesh2, restored)
+    del restored
+    back = gather_state(placed2)
+    torch.cuda.synchronize()
+    elastic_s = time.perf_counter() - t0
+    del placed2
+    elastic_unequal = [
+        "/".join(p) for (p, x), (_, y) in zip(
+            leaves_with_paths(back), leaves_with_paths(state.params))
+        if not _leaf_equal(torch, x, y)]
+    return dict(mesh=mesh.shape, entries=mesh.size, state_bytes=state_bytes,
+                shard_bytes=shard_bytes,
+                allocated_after_reshard=after_reshard,
+                reshard_seconds=reshard_s, gather_seconds=gather_s,
+                leaves=len(splits), split_counts=splits,
+                unequal_leaves=unequal, peak_bytes=peak,
+                elastic=dict(mesh=mesh2.shape, save_seconds=save_s,
+                             checkpoint_bytes=ckpt_bytes,
+                             restore_seconds=restore_s,
+                             reshard_gather_seconds=elastic_s,
+                             unequal_leaves=elastic_unequal,
+                             disk_free_bytes=disk.free))
+
+
+def phase_lm_dist(torch, card, plain_step_ms):
+    """Phase 16: the distribution layer at qwen3-1.7b's published train
+    state (28 layers, d 2,048, 1,720,567,808 parameters; float32 masters
+    and moments, seeded random weights), which launches none of K1-K4.
+    (a) Placement (``_dist_placement``): ``reshard_state`` onto
+    ``make_debug_mesh(2, 2, multi_pod=True)`` forced onto 8 entries
+    naming the card, every leaf gathered bit-equal; the elastic leg onto
+    ``make_debug_mesh(4, 2)`` through a checkpoint.  (c) Card against
+    CPU at full width on 2 layers in float32, a constant learning rate,
+    three pod steps, stage by stage (``_dist_card_vs_cpu``).  (d) The
+    dry run on the host's CPU (``_dist_dryrun``).  (b) The pod step at
+    full size: 2 pods, the launcher's ``TokenPipeline`` batches of 8 x
+    128 (4 x 128 per pod), the launcher's cosine schedule, 20 steps with
+    error feedback: every loss and grad norm finite, the last loss below
+    the first.  (e) The pod step's ms (median of steps 3-20,
+    synchronised) against phase 15 (a)'s plain step, a profiled step's
+    launches and device time with ``compressed_psum``'s share, and peak
+    memory."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.config import param_count
+    from repro_torch.parallel import compression
+    from repro_torch.parallel.mesh import force_local_devices
+    from repro_torch.train import steps as PS
+    from repro_torch.train.optimizer import cosine_schedule
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(LM_ARCH)
+    assert param_count(cfg) == LM_PARAMS
+    marks = {}
+
+    def mark(part, t=[t_phase]):
+        now = time.perf_counter()
+        marks[part] = now - t[0]
+        t[0] = now
+
+    with force_local_devices([dev] * DIST_ENTRIES):
+        mesh = make_debug_mesh(2, 2, multi_pod=True)
+        mesh2 = make_debug_mesh(4, 2)
+
+    # (a) placement of the published train state
+    placement = _dist_placement(torch, cfg, dev, mesh, mesh2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_dist_placement", arch=LM_ARCH, card=card,
+              **placement))
+    assert placement["unequal_leaves"] == [] and \
+        placement["elastic"]["unequal_leaves"] == [], placement
+    mark("a")
+
+    # (c) card against CPU, stage by stage
+    torch.cuda.reset_peak_memory_stats()
+    cvc = _dist_card_vs_cpu(torch, cfg, dev, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_dist_card_vs_cpu", arch=LM_ARCH, card=card,
+              dtype="float32", rtol=TRAIN_CARD_CPU_TOL,
+              atol=TRAIN_CARD_CPU_TOL, **cvc))
+    assert cvc["ok_metrics"], cvc["metrics"]
+    assert cvc["not_close"] == [], cvc["not_close"]
+    assert cvc["unequal_payloads"] == 0 and cvc["scale_max_ulps"] <= 1
+    mark("c")
+
+    # (d) the dry run, on the host's CPU
+    summary = _dist_dryrun()
+    emit(dict(phase="lm_dist_dryrun", device="meta (no card)", **summary))
+    assert all(v["records"] == v["files"] for k, v in summary.items()
+               if k != "qwen3_1_7b_train_4k")
+    assert summary["16x16 counted"]["counted"] == 1
+    mark("d")
+
+    # (b) the pod step at full size
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = PS.init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                error_feedback=DIST_PODS, device=dev)
+    step = PS.make_train_step(cfg, cosine_schedule(TRAIN_LR, TRAIN_WARMUP,
+                                                   DIST_STEPS),
+                              compress_pod_grads=True, mesh=mesh)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    losses, gnorms, step_s = [], [], []
+    for s in range(DIST_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.batch_at(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak_b = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(step_s[DIST_TIMED_FROM:]) * 1e3
+    emit(dict(phase="lm_dist_pod_step", arch=LM_ARCH, card=card,
+              pods=DIST_PODS, steps=DIST_STEPS, batch=TRAIN_BATCH,
+              seq=TRAIN_SEQ, losses=losses, grad_norms=gnorms,
+              loss_fell=losses[0] - losses[-1],
+              residual_trees=len(state.ef), peak_bytes=peak_b))
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert losses[-1] < losses[0], losses
+    mark("b")
+
+    # (e) times and a profiled step, compressed_psum in a range
+    from torch.profiler import record_function
+
+    real_psum = compression.compressed_psum
+
+    def ranged_psum(xs, errors):
+        with record_function(DIST_COMPRESS_RANGE):
+            return real_psum(xs, errors)
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(DIST_STEPS).items()}
+    box = {"state": state}
+    del state
+
+    def one_step():
+        box["state"], _ = step(box["state"], batch)
+
+    compression.compressed_psum = ranged_psum
+    try:
+        prof, busy_ms, kernels = profiled(torch, "lm_dist", "pod_step",
+                                          one_step)
+    finally:
+        compression.compressed_psum = real_psum
+    launches = sum(e.count for e in kernels)
+    calls, ks = range_kernels(prof, DIST_COMPRESS_RANGE)
+    psum_ms = sum(us for _, us in ks) / 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    del box, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_dist", arch=LM_ARCH, card=card, pods=DIST_PODS,
+              step_ms=step_ms, step_ms_all=[x * 1e3 for x in step_s],
+              plain_step_ms=plain_step_ms,
+              step_over_plain=step_ms / plain_step_ms,
+              tokens_per_s=tokens / (step_ms / 1e3),
+              profiled_launches=launches, profiled_busy_ms=busy_ms,
+              compressed_psum_calls=calls,
+              compressed_psum_launches=len(ks),
+              compressed_psum_device_ms=psum_ms,
+              compressed_psum_share_of_step=psum_ms / step_ms,
+              compressed_psum_share_of_busy=psum_ms / busy_ms,
+              peak_bytes=peak_b))
+    mark("e")
+    emit(dict(phase="scale_lm_dist",
+              reduced=["(c): 2 layers at full width, batch 2 x 128 (1 x "
+                       "128 per pod), float32, 3 steps",
+                       "(d): every cell laid out on both meshes, FLOPs "
+                       "counted for qwen3-1.7b train_4k only",
+                       "meshes are 8 entries naming one card: the split, "
+                       "not placement across cards"],
+              note="(a), (b) and (e) at qwen3-1.7b's full width and depth"))
+    emit(dict(phase="lm_phase", of=16, arch=LM_ARCH,
+              seconds=time.perf_counter() - t_phase, step_seconds=marks))
 
 
 def device_busy_us(prof):
@@ -3812,12 +4319,14 @@ def main(argv) -> int:
     mesh = phase_mesh(torch, bfa, fa, initial, record, sharded_refs,
                       loop_b)  # own peak
     del initial
-    lm = {}
+    lm, out = {}, {}
     for of, run in ((13, phase_lm_serve), (14, phase_lm_families),
-                    (15, phase_lm_train)):
+                    (15, phase_lm_train),
+                    (16, lambda torch, card: phase_lm_dist(
+                        torch, card, out[15]["step_ms"]))):
         bfa.launches = bfa.sharded_launches = bfa.masked_launches = 0
         fa.launches = 0
-        run(torch, card)  # own peak
+        out[of] = run(torch, card)  # own peak
         lm[of] = dict(K1=bfa.launches, K2=fa.launches,
                       K3=bfa.masked_launches, K4=bfa.sharded_launches)
         assert not any(lm[of].values()), lm  # the LM path runs no scan kernel
@@ -3825,7 +4334,7 @@ def main(argv) -> int:
               K3_phase5=k3_launches, K3_phase7=k3_sharded, K4=k4_launches,
               phase8=loop, phase9=base, phase10=lane, phase11=rep,
               phase12=mesh, phase13=lm[13], phase14=lm[14],
-              phase15=lm[15]))
+              phase15=lm[15], phase16=lm[16]))
 
     k1, k2 = kr[("K1", 8)], kr[("K2", 1)]
     kernels = [

@@ -98,7 +98,8 @@ from repro_torch.core.index import (
 from repro_torch.core.table import ShardedTable, Table, slice_shards
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels.ref import i32_sum
-from repro_torch.parallel.mesh import local_devices, make_scan_mesh
+from repro_torch.parallel.mesh import (SHARD_AXIS, ScanMesh, local_devices,
+                                      make_scan_mesh, query_axis_size)
 
 
 PURE_INDEX_PATHS = ("pure_vbp", "pure_vap")
@@ -419,7 +420,7 @@ class _Slice(NamedTuple):
 def _mesh_rows(mesh, st, index, los, his, tss):
     """The grid's slices, one list (over the shard axis) per query
     block."""
-    d, q = len(mesh.devices), len(mesh.devices[0])
+    d, q = mesh.shape[SHARD_AXIS], query_axis_size(mesh)
     S, B = st.n_shards, los.shape[0]
     if S % d or B % q:
         raise ValueError(f"a {d} x {q} mesh cannot split {S} shards and "
@@ -429,7 +430,7 @@ def _mesh_rows(mesh, st, index, los, his, tss):
         qs = slice(j * per_q, (j + 1) * per_q)
         row = []
         for i in range(d):
-            dev = mesh.devices[i][j]
+            dev = mesh.flat_devices[i * q + j]
             a, b = i * per_dev, (i + 1) * per_dev
             row.append(_Slice(
                 dev, a, slice_shards(st, a, b, dev),
@@ -440,7 +441,7 @@ def _mesh_rows(mesh, st, index, los, his, tss):
 
 
 def _first_device(mesh) -> torch.device:
-    return mesh.devices[0][0]
+    return mesh.flat_devices[0]
 
 
 def _reduce(parts, dev0, op="sum"):
@@ -488,6 +489,35 @@ def mesh_batched_full_table_scan(st: ShardedTable, attrs: tuple, los, his,
     used = torch.full((B,), _used_pages(st), dtype=torch.int32, device=dev0)
     return BatchScanResult(torch.cat(sums), torch.cat(cnts), used, z,
                            z.clone())
+
+
+def shards_uniform(st: ShardedTable) -> bool:
+    """Every shard holds the same number of pages (no padding pages on
+    the stacked axis)."""
+    return len(set(st.local_pages)) == 1
+
+
+def pmap_batched_full_table_scan(st: ShardedTable, attrs: tuple, los, his,
+                                 tss, agg_attr: int) -> BatchScanResult:
+    """Device fan-out, one shard per device: the reference's ``pmap``
+    form (a parity reference there too; ``ScanEngine`` dispatches to
+    the ``mesh_*`` forms).  The port has one controller, so this is
+    ``mesh_batched_full_table_scan``'s plain path on a grid of one
+    device per shard (``parallel.sharding.shard_fanout_devices``); as in
+    the reference, no kernel runs here.  Callers check
+    ``shard_fanout_devices`` and ``shards_uniform`` first, as in the
+    reference; the reduced aggregates are bit-identical to the stacked
+    fan-out."""
+    from repro_torch.parallel.sharding import shard_fanout_devices
+
+    devices = shard_fanout_devices(st.n_shards)
+    if devices is None or not shards_uniform(st):
+        raise ValueError(f"the pmap fan-out needs one device per shard "
+                         f"and uniform shards ({st.n_shards} shards, "
+                         f"pages {st.local_pages})")
+    return mesh_batched_full_table_scan(
+        st, attrs, los, his, tss, agg_attr,
+        ScanMesh(devices, (SHARD_AXIS,)))
 
 
 def mesh_batched_hybrid_scan(st: ShardedTable, index: ShardedIndex,

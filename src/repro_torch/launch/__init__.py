@@ -1,2 +1,3 @@
-"""Launchers of the port: the serve entry point (``serve``).  The mesh,
-spec, dry-run and train launchers come with later LM slices."""
+"""Launchers of the port: the production mesh (``mesh``), shape specs
+(``specs``), the multi-pod dry run (``dryrun``) and the train and
+serve entry points."""

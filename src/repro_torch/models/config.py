@@ -8,8 +8,9 @@ forward (``torch.utils.checkpoint``), as the reference's
 (scan against a Python loop over the layers) that the port keeps as a
 field, so configs stay field-for-field equal: eager PyTorch always
 loops over its layers.  ``loss_chunk`` sets the training loss's chunk
-of positions; ``pad_attn_heads`` pads nothing without a tensor-parallel
-axis.
+of positions; ``pad_attn_heads`` pads the attention heads to a multiple
+of the active mesh's tensor-parallel axis (``parallel.sharding``), and
+nothing with no mesh active.
 
 One dataclass; families select the block type:
 

@@ -158,12 +158,22 @@ def _map_state(fn, tree):
     return nest((path, one(leaf)) for path, leaf in tree_items(tree))
 
 
+def _map_residuals(fn, ef):
+    """``fn`` over the residuals: None, or a tuple of one tree per pod
+    (the port's form), given also as the reference's one tree (a dict),
+    which is one pod's."""
+    if isinstance(ef, dict):
+        ef = (ef,)
+    return None if ef is None else tuple(_map_state(fn, t) for t in ef)
+
+
 def train_state_from_reference(cfg: ModelConfig, state_np, device=None):
     """The reference's ``TrainState`` as numpy arrays (``params``; ``opt``
     = (``step``, ``mu``, ``nu``), each moment a float32 array or a
-    ``Quant8(q, scale)`` pair per leaf; ``ef`` or None) as the port's
-    ``TrainState`` on ``device`` (the card unless the caller names
-    another)."""
+    ``Quant8(q, scale)`` pair per leaf; ``ef`` None, the reference's
+    one residual tree, or the port's tuple of one tree per pod) as the
+    port's ``TrainState`` on ``device`` (the card unless the caller
+    names another), its residuals a tuple of one tree per pod."""
     from repro_torch.train.optimizer import AdamWState
     from repro_torch.train.steps import TrainState
 
@@ -177,13 +187,14 @@ def train_state_from_reference(cfg: ModelConfig, state_np, device=None):
     opt = AdamWState(put(np.asarray(step, np.int32)), _map_state(put, mu),
                      _map_state(put, nu))
     return TrainState(params_from_reference(cfg, params_np, device), opt,
-                      _map_state(put, ef))
+                      _map_residuals(put, ef))
 
 
 def train_state_to_numpy(state):
     """The port's ``TrainState`` in the reference's layout, as numpy
     arrays (the port's ``TrainState`` / ``AdamWState`` / ``Quant8``
-    tuples, whose fields are the reference's)."""
+    tuples, whose fields are the reference's; the residuals one tree
+    per pod, whose leaves for one pod are the reference's in order)."""
     from repro_torch.train.optimizer import AdamWState
     from repro_torch.train.steps import TrainState
 
@@ -194,4 +205,4 @@ def train_state_to_numpy(state):
     return TrainState(params_to_numpy(state.params),
                       AdamWState(host(opt.step), _map_state(host, opt.mu),
                                  _map_state(host, opt.nu)),
-                      _map_state(host, state.ef))
+                      _map_residuals(host, state.ef))

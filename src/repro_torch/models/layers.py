@@ -18,10 +18,11 @@ router's gates, the xLSTM gates and stabilisers and the recurrent
 states (``ssm_decode``'s, the mLSTM memory, the sLSTM cell) are
 float32.
 
-One card has no tensor-parallel axis (the reference's
-``axis_size("tp")`` is 1 there), so ``_maybe_pad_heads`` pads nothing
-and the reference's sharding constraints are the identity; they are
-not carried over.
+``_maybe_pad_heads`` reads the tensor-parallel axis as the reference
+does (``parallel.sharding.axis_size("tp")``, 1 with no active mesh).
+The reference's sharding constraints ask XLA for layouts; the port
+runs one controller over whole tensors, so they are not carried over
+(``parallel.sharding.constrain`` is the identity).
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel.sharding import axis_size
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +190,18 @@ def _qkv(x, p: AttnParams, cfg, positions, mrope_positions=None):
 
 
 def _maybe_pad_heads(q, k, v, cfg):
-    """The reference pads the GQA-repeated heads to a multiple of the
-    tensor-parallel axis; on one card that axis is 1, so nothing is
-    padded and the real head count is returned."""
-    return q, k, v, q.shape[2]
+    """Pad the (already GQA-repeated) head dim with zeros to a multiple
+    of the tensor-parallel axis (``axis_size("tp")`` of the active mesh)
+    when ``cfg.pad_attn_heads``, as the reference does so that attention
+    can head-shard when n_heads does not divide the axis (56 / 28 / 25
+    heads on a 16-way axis).  Padded heads give zeros, which the caller
+    slices away.  Returns (q, k, v, the real head count)."""
+    tp = max(axis_size("tp"), 1)
+    H = q.shape[2]
+    if not getattr(cfg, "pad_attn_heads", False) or tp <= 1 or H % tp == 0:
+        return q, k, v, H
+    pad = (0, 0, 0, -(-H // tp) * tp - H)  # (hd: none, heads: after)
+    return F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), H
 
 
 def _repeat_kv(k, v, cfg):

@@ -52,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.table import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import axis_size
 
 ATTN_CHUNK = 1024         # query-chunk length for blockwise attention
 
@@ -467,9 +468,17 @@ def loss_fn(params: LM, cfg: ModelConfig, batch) -> torch.Tensor:
 
 def cache_heads(cfg: ModelConfig) -> int:
     """KV-head count stored in the cache.  With cache_repeated_kv the
-    cache holds the GQA-repeated query heads (no padding: one card has
-    no tensor-parallel axis)."""
-    return cfg.n_heads if cfg.cache_repeated_kv else cfg.n_kv_heads
+    cache holds the GQA-repeated query heads, padded with
+    ``pad_attn_heads`` to a multiple of the active mesh's
+    tensor-parallel axis (``axis_size("tp")``, 1 with no mesh), so the
+    head dim shards over the model axis."""
+    if not cfg.cache_repeated_kv:
+        return cfg.n_kv_heads
+    H = cfg.n_heads
+    tp = max(axis_size("tp"), 1)
+    if cfg.pad_attn_heads and H % tp:
+        H = -(-H // tp) * tp
+    return H
 
 
 def _recurrent_cache(cfg: ModelConfig, batch: int, device) -> Dict:

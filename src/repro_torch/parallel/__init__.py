@@ -1,3 +1,3 @@
-"""The storage engine's device mesh (``mesh``): which device owns which
-shards and queries of a batched sharded scan; and cross-pod gradient
+"""Distribution substrate of the port: the device mesh (``mesh``),
+logical-axis sharding rules (``sharding``) and cross-pod gradient
 compression (``compression``)."""

@@ -9,9 +9,9 @@ steps (1-bit-Adam / PowerSGD-style residual correction).
 The reference's ``compressed_psum`` runs inside ``shard_map`` over the
 'pod' mesh axis, one call per pod.  The port's takes the form of PR
 21's mesh, one controller over every pod: the list of the pods'
-contributions and residuals, summed as ``psum`` sums them.  The
-'pod' axis of a train step comes with ``parallel/sharding.py``
-(ROADMAP queue 1 item 2(f)).
+contributions and residuals, summed as ``psum`` sums them.
+``train.steps.make_train_step(compress_pod_grads=True)`` calls it once
+per gradient leaf.
 """
 from __future__ import annotations
 

@@ -17,6 +17,8 @@ asks torch which devices exist:
 
 * ``make_scan_mesh``   -- the grid (the reference's placement rule),
   cached per (n_shards, query_axis, devices).
+* ``make_mesh``        -- a grid of any shape and axis names over the
+  local devices (``jax.make_mesh``), for ``launch.mesh``.
 * ``stacked_specs`` / ``batch_spec`` / ``replicated_spec`` -- which
   axis of an operand the grid splits, as plain descriptors.
 * ``local_devices``    -- the devices a grid may claim.
@@ -67,31 +69,81 @@ def local_devices(device_type: str = "cuda") -> Tuple[torch.device, ...]:
 
 
 class ScanMesh:
-    """A (d, q) grid of devices with named axes, like
-    ``jax.sharding.Mesh``: ``devices[i][j]`` owns shard slice i and
-    query slice j.  Immutable."""
+    """A grid of devices with named axes, like ``jax.sharding.Mesh``:
+    ``devices`` nests one level per axis of ``axis_names`` (row-major),
+    and ``shape`` is ``{axis name: size}`` in axis order.  The storage
+    engine's grids have the axes ``("shard",)`` or ``("shard",
+    "qbatch")``; ``make_mesh`` builds the LM's ``("data", "model")`` and
+    ``("pod", "data", "model")`` meshes.  Several entries may name one
+    device (``force_local_devices``).  Immutable."""
 
-    __slots__ = ("devices", "axis_names")
+    __slots__ = ("devices", "axis_names", "_sizes")
 
     def __init__(self, devices, axis_names):
-        object.__setattr__(self, "devices",
-                           tuple(tuple(row) for row in devices))
-        object.__setattr__(self, "axis_names", tuple(axis_names))
+        axis_names = tuple(axis_names)
+
+        def nested(x, depth):
+            if depth == 0:
+                return torch.device(x)
+            return tuple(nested(y, depth - 1) for y in x)
+
+        devices = nested(devices, len(axis_names))
+        sizes, level = [], devices
+        for _ in axis_names:
+            sizes.append(len(level))
+            level = level[0]
+        object.__setattr__(self, "devices", devices)
+        object.__setattr__(self, "axis_names", axis_names)
+        object.__setattr__(self, "_sizes", tuple(sizes))
 
     def __setattr__(self, name, value):
         raise AttributeError("ScanMesh is immutable")
 
     @property
     def shape(self) -> dict:
-        """{axis name: size}, as ``Mesh.shape``."""
-        d, q = len(self.devices), len(self.devices[0])
-        out = {SHARD_AXIS: d}
-        if QUERY_AXIS in self.axis_names:
-            out[QUERY_AXIS] = q
+        """{axis name: size} in axis order, as ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self._sizes))
+
+    @property
+    def size(self) -> int:
+        """The number of device entries, as ``Mesh.size``."""
+        return mesh_device_count(self)
+
+    @property
+    def flat_devices(self) -> Tuple[torch.device, ...]:
+        """Every entry in row-major order (the last axis fastest)."""
+        out = self.devices
+        for _ in self.axis_names[1:]:
+            out = tuple(d for row in out for d in row)
         return out
 
     def __repr__(self) -> str:
-        return f"ScanMesh({self.shape}, {self.devices})"
+        return f"ScanMesh({self.shape}, {self.flat_devices})"
+
+
+def make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+              device_type: str = "cuda") -> ScanMesh:
+    """A mesh of the given shape over the first ``prod(shape)`` local
+    devices (``local_devices``), as ``jax.make_mesh``; raises when
+    fewer exist.  Under ``force_local_devices`` the forced list is
+    used, e.g. 512 entries naming ``meta`` for the dry run."""
+    devices = local_devices(device_type)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if len(devices) < n:
+        raise ValueError(f"a mesh of shape {tuple(shape)} needs {n} "
+                         f"devices; {len(devices)} are available")
+
+    def grid(flat, dims):
+        if not dims:
+            return flat[0]
+        step = len(flat) // dims[0]
+        return [grid(flat[i * step:(i + 1) * step], dims[1:])
+                for i in range(dims[0])]
+
+    return ScanMesh(grid(devices[:n], tuple(int(s) for s in shape)),
+                    axis_names)
 
 
 @functools.lru_cache(maxsize=32)
@@ -105,9 +157,9 @@ def _make_scan_mesh(n_shards: int, q: int,
             break
     if d < 2:
         return None
-    grid = [devices[i * q:(i + 1) * q] for i in range(d)]
     if q == 1:
-        return ScanMesh(grid, (SHARD_AXIS,))
+        return ScanMesh(devices[:d], (SHARD_AXIS,))
+    grid = [devices[i * q:(i + 1) * q] for i in range(d)]
     return ScanMesh(grid, (SHARD_AXIS, QUERY_AXIS))
 
 

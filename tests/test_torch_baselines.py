@@ -15,6 +15,8 @@ quick size; and the cases of ``test_tuner_system.py::
 test_all_baseline_tuners_run``.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import warnings
 

@@ -21,6 +21,8 @@ and on a coverage index with page-list quanta), overlap takes build
 work out of the blocking path, and stale quanta are skipped.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import numpy as np

@@ -14,6 +14,8 @@ Pallas kernel in interpret mode, bit for bit, and to K1 on prefix
 bitmaps.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import importlib
 

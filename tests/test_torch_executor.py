@@ -14,6 +14,8 @@ Holt-Winters update as XLA on the CPU contracts it, with one fused
 multiply-add (``repro_torch.core.forecaster``).
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import numpy as np

@@ -26,6 +26,8 @@ adoption under failover never double-counts a page; the open loop's
 degraded mode; and the chaos trajectory replays across hash seeds.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import os
 import subprocess

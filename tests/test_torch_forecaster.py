@@ -9,6 +9,8 @@ midpoint, in ``update`` and in ``forecast``, and the port must stay
 bit-equal to the reference's jitted forecaster on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 from fractions import Fraction
 
 import jax.numpy as jnp

@@ -4,6 +4,8 @@ reference: every single and batched scan form, and
 reference's kernel in Pallas interpret mode, the port's plain K1
 version), on mid-build indexes over MVCC tables."""
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import importlib
 
 import jax.numpy as jnp

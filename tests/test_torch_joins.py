@@ -13,6 +13,8 @@ window (the inner-table ``:join`` records included) are compared for
 equality.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import warnings
 

@@ -7,6 +7,8 @@ CUDA kernels themselves are compared with the plain versions on the
 card (tests/test_torch_kernels_cuda.py and chip_smoke.py).
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ has only the port's dependencies:
     PYTHONPATH=src python -m pytest tests/test_torch_kernels_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import numpy as np
 import pytest
 import torch

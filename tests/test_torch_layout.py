@@ -12,6 +12,8 @@ plane check (K1 / K4 on the card) refuses a plane whose row stride is
 not 1.  Values are compared with a row-major numpy oracle.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import numpy as np
 import pytest
 import torch

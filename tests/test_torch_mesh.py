@@ -18,6 +18,8 @@ forced 4-device mesh and holds the port's ``ExecStats`` (tier
 ``run_workload`` results to it field for field.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import functools
 import os

@@ -17,6 +17,8 @@ hybrid and xLSTM families are held to the reference in
 tests/test_torch_models_families.py.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import functools
 

@@ -19,6 +19,8 @@ only its rows are left out; the sLSTM's float32 cell and normaliser are
 held by norm in bf16.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import contextlib
 
 import numpy as np

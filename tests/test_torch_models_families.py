@@ -30,6 +30,8 @@ the logits of a sequence whose last token flipped).  In float32 no
 token may flip and every token is compared.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import contextlib
 import dataclasses
 import functools

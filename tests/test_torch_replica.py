@@ -19,6 +19,8 @@ Tolerance: none.  Every ``RunResult`` field but ``wall_s``,
 the clock, the monitor windows and every replica's index build state.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import os
 import subprocess

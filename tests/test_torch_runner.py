@@ -13,6 +13,8 @@ reference runs its vmap tier, which it holds bit-equal to its kernel
 tier.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import warnings
 

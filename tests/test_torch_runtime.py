@@ -15,6 +15,8 @@ losses against the reference's within 2e-3 (the measured gap over the
 first 10 smoke steps is at most 2.3e-4).
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import os
 import subprocess

@@ -13,6 +13,8 @@ the port's knapsack and forecaster, which the prefix cache on this path
 runs, give the reference's answers bit for bit on them.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import os
 import subprocess

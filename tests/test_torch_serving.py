@@ -17,6 +17,8 @@ never starves builds, replays are deterministic, and a closed-loop
 configuration keeps the closed loop.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import numpy as np

@@ -13,6 +13,8 @@ prefix materialised, the canonical budget order, aging, and a cycle
 that replays across ``PYTHONHASHSEED`` values.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import os
 import subprocess

@@ -18,6 +18,8 @@ pinned by a named test (``test_shard_aware_write_heavy_run_keeps_the_rows
 _the_reference_loses``).
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import jax.numpy as jnp

@@ -19,6 +19,8 @@ contract -- and ``test_port_keeps_the_row_the_reference_sharded_insert
 _loses`` pins the divergence.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import jax.numpy as jnp

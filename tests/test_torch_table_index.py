@@ -1,6 +1,8 @@
 """Parity of the port's table, index and TUNER data generators with
 the reference: same numpy inputs, bit-equal tables and indexes."""
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,8 @@ Tolerances, float32: the loss rtol / atol 1e-5; gradients rtol / atol
 1.2e-6).
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import functools
 

@@ -11,6 +11,8 @@ and batched, on 1, 2 and 4 shards through the ``Database``; and
 count, cost and clock field is compared for equality.
 """
 
+import _torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import jax.numpy as jnp
