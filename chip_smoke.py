@@ -4168,7 +4168,10 @@ GATHER_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel",
 def range_kernels(prof, name):
     """How many times the profiler range ``name`` was entered, and
     (kernel name, device us) of every device kernel launched inside it:
-    by the CPU ops under it, at any depth."""
+    by the CPU ops under it, at any depth.  The op tree keeps what
+    another thread launched meanwhile (autograd's backward pass) out of
+    the range; the program's own tracer spans, which hold no ops, are
+    read by launch correlation instead (``telemetry.kernels_under``)."""
     from torch.autograd import DeviceType
 
     stack = [e for e in prof.events()
@@ -4231,19 +4234,29 @@ def profiled(torch, tag, name, fn):
 def profile_bursts(torch, dbk, dbp, tag, make_scans):
     """Device time by kernel name for one burst of each twin (each
     twin's scans from one call of ``make_scans``), and on a line of its
-    own the gather kernels of the index half (those launched inside
-    ``hybrid_scan.GATHER_RANGE``) beside every gather kernel of the
-    burst (crack adoption's page gathers and coverage writes
-    included)."""
+    own the gather kernels of the index half (those whose launch the
+    program made inside its tracer span ``hybrid_scan.GATHER_RANGE``,
+    found by launch correlation with ``telemetry.kernels_under``, the
+    reader ``pibench`` uses too) beside every gather kernel of the burst
+    (crack adoption's page gathers and coverage writes included)."""
+    from repro_torch import telemetry
     from repro_torch.core.hybrid_scan import GATHER_RANGE
 
     for name, db, use_kernel in (("kernel", dbk, True),
                                  ("plain", dbp, False)):
         scans = make_scans()
-        prof, busy_ms, kernels = profiled(
-            torch, tag, name,
-            lambda: db.execute_batch(scans, use_kernel=use_kernel))
-        probes, in_range = range_kernels(prof, GATHER_RANGE)
+        telemetry.drain()
+        telemetry.enable()
+        try:
+            prof, busy_ms, kernels = profiled(
+                torch, tag, name,
+                lambda: db.execute_batch(scans, use_kernel=use_kernel))
+        finally:
+            telemetry.disable()
+        probes, in_range = telemetry.kernels_under(
+            telemetry.drain(), prof.profiler.kineto_results.events(),
+            GATHER_RANGE)
+        in_range = [(k, ns / 1e3) for k, ns in in_range]
         half = [(k, us) for k, us in in_range
                 if any(g in k for g in GATHER_KERNELS)]
         gather_ms = sum(us for _, us in half) / 1e3

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.bench_db.workloads import Workload
 from repro_torch.core.build_service import BuildService
 from repro_torch.core.executor import Database
@@ -596,35 +597,38 @@ def _run_closed_loop(
     def account(phase, q, stats):
         """Per-query bookkeeping shared by the single and batch paths."""
         nonlocal blocking_ms, idle_credit_ms
-        if stats is None:
-            # A dropped statement (recovery off, routed to a dead
-            # replica): only the drop counts; pending blocking work
-            # carries to the next served query.
-            res.dropped_queries += 1
-            return
-        extra_units = tuner.on_query(q, stats)
-        extra_ms = extra_units * cfg.time_per_unit_ms
-        db.clock_ms += extra_ms
-        lat = stats.latency_ms + extra_ms + blocking_ms
-        blocking_ms = 0.0
-        res.latencies_ms.append(lat)
-        res.phases.append(phase)
-        res.cumulative_ms += lat
-        res.results.append((stats.agg_sum, stats.count, stats.rows_modified))
-        if stats.tier:
-            res.execution_tiers[stats.tier] = (
-                res.execution_tiers.get(stats.tier, 0) + 1
-            )
-        res.index_counts.append(len(db.indexes))
-        fracs = [
-            b.built_fraction(db.tables[b.desc.table])
-            for b in db.indexes.values()
-        ]
-        res.built_fraction.append(float(np.mean(fracs)) if fracs else 0.0)
-        if cfg.arrival_ms > 0.0 and lat < cfg.arrival_ms:
-            gap = cfg.arrival_ms - lat
-            db.clock_ms += gap
-            idle_credit_ms += gap
+        with telemetry.span("runner.account"):
+            if stats is None:
+                # A dropped statement (recovery off, routed to a dead
+                # replica): only the drop counts; pending blocking work
+                # carries to the next served query.
+                res.dropped_queries += 1
+                return
+            extra_units = tuner.on_query(q, stats)
+            extra_ms = extra_units * cfg.time_per_unit_ms
+            db.clock_ms += extra_ms
+            lat = stats.latency_ms + extra_ms + blocking_ms
+            blocking_ms = 0.0
+            res.latencies_ms.append(lat)
+            res.phases.append(phase)
+            res.cumulative_ms += lat
+            res.results.append(
+                (stats.agg_sum, stats.count, stats.rows_modified))
+            if stats.tier:
+                res.execution_tiers[stats.tier] = (
+                    res.execution_tiers.get(stats.tier, 0) + 1
+                )
+            res.index_counts.append(len(db.indexes))
+            fracs = [
+                b.built_fraction(db.tables[b.desc.table])
+                for b in db.indexes.values()
+            ]
+            res.built_fraction.append(
+                float(np.mean(fracs)) if fracs else 0.0)
+            if cfg.arrival_ms > 0.0 and lat < cfg.arrival_ms:
+                gap = cfg.arrival_ms - lat
+                db.clock_ms += gap
+                idle_credit_ms += gap
 
     # Read bursts: consecutive batchable scans are staged and submitted
     # through the batched execution path in one dispatch.  Tuning

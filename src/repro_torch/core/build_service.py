@@ -82,6 +82,7 @@ from typing import Deque, List, Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.index import split_build_pages
 
 # EWMA weight for the build-lane throughput model (pages/ms).
@@ -155,8 +156,9 @@ def apply_quantum(db, quantum: BuildQuantum) -> float:
         bi = d.indexes.get(quantum.index_name)
         if bi is None or not bi.building or bi.scheme not in ("vap", "full"):
             continue
-        w = d.vap_build_step(bi, quantum.pages, shard=quantum.shard,
-                             page_list=quantum.page_list or None)
+        with telemetry.span("index.build"):
+            w = d.vap_build_step(bi, quantum.pages, shard=quantum.shard,
+                                 page_list=quantum.page_list or None)
         work = max(work, w)
     return work
 

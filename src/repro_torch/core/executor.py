@@ -5,9 +5,10 @@ tables, built indexes and layout state of one database and executes
 benchmark statements, returning *measured* statistics in the same
 tuple-touch units the what-if cost model estimates in.  Cost, latency,
 the simulated clock and the monitor window are computed exactly as in
-the reference; only ``ExecStats.wall_s`` (a host clock around the
-dispatch, synchronised with the device when the table lives on CUDA)
-and ``tier`` differ by nature.
+the reference; only ``ExecStats.wall_s`` (the clock reading of the
+tracer span around the dispatch, synchronised with the device when
+the table lives on CUDA; ``repro_torch.telemetry``) and ``tier``
+differ by nature.
 
 Coverage-bitmap tuning is ported: with ``crack_on_scan`` or
 ``index_decay`` set before an index is created, the VAP index carries
@@ -44,13 +45,13 @@ do; results never change, only latency.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.engine import ScanEngine, ShardScanResult
@@ -235,15 +236,15 @@ class Database:
             self._round_robin_cache[name] = got
         return got
 
-    def _timed(self, fn, *args, **kwargs):
-        """Run ``fn`` and return (result, wall seconds of finished
-        work): device work is synchronised inside the window."""
-        cuda = self.device.type == "cuda"
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if cuda:
-            torch.cuda.synchronize(self.device)
-        return out, time.perf_counter() - t0
+    def _timed(self, name: str, fn, *args, **kwargs):
+        """Run ``fn`` as the tracer span ``name`` and return (result,
+        wall seconds of finished work): device work is synchronised
+        inside the span, whose clock reading is the wall time."""
+        with telemetry.stopwatch(name) as sw:
+            out = fn(*args, **kwargs)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return out, sw.seconds
 
     # ------------------------------------------------------------------
     # Index configuration actions (used by tuners)
@@ -336,6 +337,10 @@ class Database:
     # Execution
     # ------------------------------------------------------------------
     def execute(self, q: Query, observe: bool = True) -> ExecStats:
+        with telemetry.span("executor.execute"):
+            return self._execute(q, observe)
+
+    def _execute(self, q: Query, observe: bool) -> ExecStats:
         if q.kind == "scan":
             stats = self._exec_scan(q)
         elif q.kind == "update":
@@ -393,6 +398,7 @@ class Database:
         plan = self.planner.plan_scan(q)
         bi = plan.index
         r, wall = self._timed(
+            "engine.dispatch",
             self.engine.scan,
             t,
             plan,
@@ -484,7 +490,9 @@ class Database:
         take = open_pages[: self.crack_pages_per_scan]
         if take.size == 0:
             return 0.0
-        self._cover_pages(bi, t, take, eligible)
+        with telemetry.span("executor.crack_adopt"):
+            self._cover_pages(bi, t, take, eligible)
+        telemetry.count("index.pages_adopted", take.size)
         return float(take.size * t.page_size)
 
     def _shard_pages_of(self, t, plan) -> Tuple[int, ...]:
@@ -550,13 +558,14 @@ class Database:
                 self._exec_scan_burst(pending, out, observe, use_kernel)
                 pending.clear()
 
-        for i, q in enumerate(queries):
-            if q.kind == "scan" and q.join_table is None:
-                pending.append((i, q))
-            else:
-                flush()
-                out[i] = self.execute(q, observe=observe)
-        flush()
+        with telemetry.span("executor.execute_batch"):
+            for i, q in enumerate(queries):
+                if q.kind == "scan" and q.join_table is None:
+                    pending.append((i, q))
+                else:
+                    flush()
+                    out[i] = self.execute(q, observe=observe)
+            flush()
         return out
 
     def _exec_scan_burst(
@@ -590,6 +599,7 @@ class Database:
                                  device=dev)
                 plan = members[0][2]
                 r, wall = self._timed(
+                    "engine.dispatch",
                     self.engine.scan_batch,
                     t,
                     plan.path,
@@ -733,6 +743,7 @@ class Database:
         t = self.tables[q.table]
         layout = self.layouts[q.table]
         (new_t, n_upd), wall = self._timed(
+            "executor.update_rows",
             sharded_update_rows if isinstance(t, ShardedTable)
             else update_rows,
             t,
@@ -773,6 +784,7 @@ class Database:
         t = self.tables[q.table]
         rows = np.asarray(q.rows, np.int32)
         new_t, wall = self._timed(
+            "executor.insert_rows",
             sharded_insert_rows if isinstance(t, ShardedTable)
             else insert_rows,
             t,
@@ -833,6 +845,7 @@ class Database:
         if bi.vap.built_pages >= full_pages:
             bi.complete = True
             bi.building = False
+        telemetry.count("index.pages_built", done)
         return float(done * t.page_size)
 
     def _coverage_build_step(self, bi: BuiltIndex, t, pages: int,
@@ -860,6 +873,7 @@ class Database:
                 open_pages = open_pages[open_pages % t.n_shards == shard]
             take = open_pages[: int(pages)]
         self._cover_pages(bi, t, take, eligible)
+        telemetry.count("index.pages_built", take.size)
         return float(take.size * t.page_size)
 
     def vbp_populate(self, bi: BuiltIndex, q: Query, max_add: int) -> float:

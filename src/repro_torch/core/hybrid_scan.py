@@ -40,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.index import (
     I32_MAX,
     I32_MIN,
@@ -57,9 +58,10 @@ from repro_torch.core.table import (
 )
 from repro_torch.kernels.ref import i32_sum
 
-# Profiler range around the index half's gathers (the probed entries'
+# Tracer span around the index half's gathers (the probed entries'
 # rids, and their rows' key, aggregate and MVCC planes), so that a
-# trace can add up their device time apart from the rest of a burst.
+# trace can add up the device time of the kernels launched inside it
+# apart from the rest of a burst.
 GATHER_RANGE = "hybrid_scan.index_gathers"
 
 
@@ -169,7 +171,7 @@ def _probe_stacked(st: ShardedTable, index: ShardedIndex, key_attrs,
         bounds[seg]
     shard = seg // B
     flat = rows_view(data)  # attribute-major: flat[:, a] is one plane
-    with torch.profiler.record_function(GATHER_RANGE):
+    with telemetry.span(GATHER_RANGE):
         local = index.rids.reshape(-1)[shard * index.rids.shape[1] + pos].to(
             torch.int64)
         rows = shard * (data.shape[1] * psz) + local

@@ -51,6 +51,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.table import (
     INF_TS,
     ShardedTable,
@@ -131,8 +132,10 @@ def _lexsort_merge(kh, kl, rids, capacity: int):
     """Sort (key_hi, key_lo, rid) triples lexicographically (stable:
     ties keep concatenation order), keep the first ``capacity``
     (padding keys sort last)."""
-    order = torch.sort(packed_keys(kh, kl), stable=True).indices[:capacity]
-    return kh[order], kl[order], rids[order]
+    with telemetry.span("index.sort"):
+        keys = packed_keys(kh, kl)
+        order = torch.sort(keys, stable=True).indices[:capacity]
+        return kh[order], kl[order], rids[order]
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from repro_torch import telemetry
 from repro_torch.core import cost_model as cm
 from repro_torch.core.cost_model import IndexDescriptor
 from repro_torch.core.index import ShardedIndex, key_range, vbp_n_entries
@@ -244,6 +245,10 @@ class QueryPlanner:
         return None
 
     def plan_scan(self, q) -> ScanPlan:
+        with telemetry.span("planner.plan"):
+            return self._plan_scan(q)
+
+    def _plan_scan(self, q) -> ScanPlan:
         bi = self._scan_index(q)
         if bi is None:
             return ScanPlan("table")

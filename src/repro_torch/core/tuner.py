@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import telemetry
 from repro_torch.core import cost_model as cm
 from repro_torch.core import forecaster as hw
 from repro_torch.core import knapsack
@@ -141,28 +142,99 @@ class PredictiveTuner:
     def tuning_cycle(self, idle: bool = False) -> float:
         """One serialized cycle: decide, then apply every build
         quantum inline."""
-        plan = self.decide(idle=idle)
-        work = plan.decide_work
-        for quantum in plan.quanta:
-            work += apply_quantum(self.db, quantum)
-        return work
+        with telemetry.span("tuner.cycle"):
+            plan = self.decide(idle=idle)
+            work = plan.decide_work
+            for quantum in plan.quanta:
+                work += apply_quantum(self.db, quantum)
+            return work
 
     def decide(self, idle: bool = False) -> CyclePlan:
         """The decision stages of Algorithm 1, with the cycle's build
         work returned as ``BuildQuantum`` records."""
+        with telemetry.span("tuner.decide"):
+            return self._decide()
+
+    def _decide(self) -> CyclePlan:
         db, cfg = self.db, self.cfg
-        db.monitor.prune(db.clock_ms)
-        shard_aware = bool(getattr(db, "shard_aware_tuning", False))
-        if shard_aware:
-            self._observe_shard_heat()
+        with telemetry.span("tuner.monitor"):
+            db.monitor.prune(db.clock_ms)
+            shard_aware = bool(getattr(db, "shard_aware_tuning", False))
+            if shard_aware:
+                self._observe_shard_heat()
+            feats, n = db.monitor.snapshot_features()
 
         # Stage I: workload classification
-        feats, n = db.monitor.snapshot_features()
-        label = self.classifier.predict(feats, n_samples=n)
+        with telemetry.span("tuner.classify"):
+            label = self.classifier.predict(feats, n_samples=n)
         if label != UNKNOWN:
             self.last_label = label
 
         # Stage II: action generation ---------------------------------
+        with telemetry.span("tuner.monitor"):
+            scans, muts = self._candidates()
+
+        with telemetry.span("tuner.utility"):
+            names, utilities, sizes, force, observed = self._utilities(
+                scans, muts)
+
+        with telemetry.span("tuner.knapsack"):
+            thresholds = {
+                WRITE_INTENSIVE: cfg.u_min_write,
+                READ_INTENSIVE: cfg.u_min_read,
+            }
+            u_min = thresholds.get(self.last_label, cfg.u_min_read)
+            u_arr = np.asarray(utilities, np.float64)
+            scale = max(u_arr.max(), 1.0) if u_arr.size else 1.0
+            eligible = (u_arr / scale) > u_min
+
+            keep = knapsack.solve(
+                np.where(eligible, u_arr, 0.0),
+                np.asarray(sizes),
+                cfg.storage_budget_bytes,
+                force_keep=np.asarray(force, bool),
+            )
+
+        # State transition (amortised): drops now, builds via VAP steps.
+        with telemetry.span("tuner.transition"):
+            chosen = {names[i] for i in range(len(names)) if keep[i]}
+            for name in list(db.indexes):
+                if name not in chosen:
+                    db.drop_index(name)
+            for name in chosen:
+                if name not in db.indexes:
+                    db.create_index(self.descs[name], scheme=self.scheme)
+
+            # Memory-cap decay (bitmap mode), before build quanta are
+            # planned, so this cycle's page lists see the decayed bitmap.
+            if getattr(db, "index_decay", False):
+                self._decay_cold_pages()
+
+        with telemetry.span("tuner.plan_quanta"):
+            quanta = self._plan_quanta(names, utilities, shard_aware)
+
+        # Stage III: index utility forecasting ------------------------
+        # (the per-shard heat models were advanced at cycle start)
+        with telemetry.span("tuner.forecast"):
+            if self.use_forecaster:
+                for name in names:
+                    st = self.models.get(name)
+                    if st is None:
+                        st = hw.init_state(self.cfg.season_len,
+                                           device=db.device)
+                    st = hw.update(
+                        st, observed[name], cfg.alpha, cfg.beta, cfg.gamma
+                    )
+                    self.models[name] = st
+                    self.forecasts[name] = float(hw.forecast(st, 1))
+        self.cycles += 1
+        return CyclePlan(quanta=quanta)
+
+    def _candidates(self):
+        """Register the window's candidates; the monitor window's scan
+        and mutator records by table (the last statement's alone for
+        the immediate variant)."""
+        db, cfg = self.db, self.cfg
         min_count = 1 if self.immediate else cfg.candidate_min_count
         for desc, _count in enumerate_candidates(
             db, min_count, cfg.max_candidates
@@ -189,7 +261,13 @@ class PredictiveTuner:
                 t: list(db.monitor.mutator_records(t))
                 for t in db.monitor.tables()
             }
+        return scans, muts
 
+    def _utilities(self, scans, muts):
+        """What-if utility of every descriptor ever seen over the
+        window (forecast-lifted, redundancy-dampened): names,
+        utilities, sizes, forced keeps and the observed utilities."""
+        db, cfg = self.db, self.cfg
         names = list(self.descs)
         utilities, sizes, force = [], [], []
         observed: Dict[str, float] = {}
@@ -225,40 +303,13 @@ class PredictiveTuner:
             correlated = (d.table, d.key_attrs[0]) in built_leading
             if name not in db.indexes and correlated:
                 utilities[i] *= cfg.redundancy_dampening
+        return names, utilities, sizes, force, observed
 
-        thresholds = {
-            WRITE_INTENSIVE: cfg.u_min_write,
-            READ_INTENSIVE: cfg.u_min_read,
-        }
-        u_min = thresholds.get(self.last_label, cfg.u_min_read)
-        u_arr = np.asarray(utilities, np.float64)
-        scale = max(u_arr.max(), 1.0) if u_arr.size else 1.0
-        eligible = (u_arr / scale) > u_min
-
-        keep = knapsack.solve(
-            np.where(eligible, u_arr, 0.0),
-            np.asarray(sizes),
-            cfg.storage_budget_bytes,
-            force_keep=np.asarray(force, bool),
-        )
-
-        # State transition (amortised): drops now, builds via VAP steps.
-        chosen = {names[i] for i in range(len(names)) if keep[i]}
-        for name in list(db.indexes):
-            if name not in chosen:
-                db.drop_index(name)
-        for name in chosen:
-            if name not in db.indexes:
-                db.create_index(self.descs[name], scheme=self.scheme)
-
-        # Memory-cap decay (bitmap mode), before build quanta are
-        # planned, so this cycle's page lists see the decayed bitmap.
-        if getattr(db, "index_decay", False):
-            self._decay_cold_pages()
-
-        # Lightweight build work, bounded per cycle and rebalanced
-        # across building indexes by forecast utility; shard-aware
-        # tuning splits each index's slice into per-shard quanta.
+    def _plan_quanta(self, names, utilities, shard_aware: bool):
+        """Lightweight build work, bounded per cycle and rebalanced
+        across building indexes by forecast utility; shard-aware
+        tuning splits each index's slice into per-shard quanta."""
+        db, cfg = self.db, self.cfg
         quanta: List[BuildQuantum] = []
         util_by_name = dict(zip(names, utilities))
         building = [
@@ -309,21 +360,7 @@ class PredictiveTuner:
                 )
             else:
                 quanta.append(BuildQuantum(b.desc.name, step, utility=u))
-
-        # Stage III: index utility forecasting ------------------------
-        # (the per-shard heat models were advanced at cycle start)
-        if self.use_forecaster:
-            for name in names:
-                st = self.models.get(name)
-                if st is None:
-                    st = hw.init_state(self.cfg.season_len, device=db.device)
-                st = hw.update(
-                    st, observed[name], cfg.alpha, cfg.beta, cfg.gamma
-                )
-                self.models[name] = st
-                self.forecasts[name] = float(hw.forecast(st, 1))
-        self.cycles += 1
-        return CyclePlan(quanta=quanta)
+        return quanta
 
     # ---- shard-aware build scheduling ---------------------------------
     def _observe_shard_heat(self) -> None:
