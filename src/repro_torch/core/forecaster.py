@@ -34,8 +34,10 @@ tests/test_torch_forecaster.py builds such sums in ``update`` and
 taken in float32, as in the reference, where alpha is a traced
 float32.  A batched state carries a leading batch axis on every
 field; ``update_batch`` / ``forecast_batch`` are the reference's
-vmapped forms, and ``ShardHeatForecaster`` one batched state over a
-table's shards.
+vmapped forms.  Every operation is elementwise over the batch, so a
+series keeps the bits it has as a scalar state: the tuner's Stage III
+advances one batched state over every descriptor it has seen, and
+``ShardHeatForecaster`` one over a table's shards.
 """
 
 from __future__ import annotations

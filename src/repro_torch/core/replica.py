@@ -123,10 +123,10 @@ def clone_tuner(
     state, bound to ``db``.  Mirrored lanes share the TunerConfig (a
     runtime adaptation such as the adaptive build budget must reach
     every lane alike); divergent lanes get a copy so that per-lane
-    budget overrides stay local.  Forecaster states are replaced, never
-    updated in place (``forecaster.update`` returns new states), so
-    dict copies may share them; the shard-heat forecasters, which hold
-    tensors, are deep-copied."""
+    budget overrides stay local.  The batched forecaster state is
+    replaced, never updated in place (``forecaster.update`` returns a
+    new state), so the clone may share it; the shard-heat forecasters,
+    which hold tensors, are deep-copied."""
     if not isinstance(tuner, PredictiveTuner):
         raise TypeError(
             "ReplicaSet tuning requires a PredictiveTuner "
@@ -141,7 +141,7 @@ def clone_tuner(
         immediate=tuner.immediate,
     )
     t.name = tuner.name
-    t.models = dict(tuner.models)
+    t.hw_state = tuner.hw_state
     t.forecasts = dict(tuner.forecasts)
     t.descs = dict(tuner.descs)
     t.shard_heat = copy.deepcopy(tuner.shard_heat)

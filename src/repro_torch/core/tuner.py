@@ -10,9 +10,11 @@ tuning cycle runs the observe-react-learn template:
   Stage III Holt-Winters update with the observed overall utility; the
             forecast feeds the next cycle's knapsack
 
-The tuner retains forecaster state for dropped indexes so their future
-utility stays predictable.  The forecaster runs in float32 on the
-database's device.
+Stage III advances one batched forecaster state over every descriptor
+ever seen, row i for the cycle's ``names[i]``: one ``update_batch`` and
+one ``forecast_batch`` a cycle, read back at once.  The tuner retains
+the rows of dropped indexes so their future utility stays predictable.
+The forecaster runs in float32 on the database's device.
 
 Coverage-bitmap scheduling (``Database.crack_on_scan`` /
 ``index_decay``): a bitmap-mode VAP index's cycle slice becomes an
@@ -36,6 +38,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import telemetry
 from repro_torch.core import cost_model as cm
@@ -109,6 +112,10 @@ class PredictiveTuner:
     ``use_forecaster=False`` degrades the decision logic to the purely
     retrospective variant and ``immediate=True`` to the immediate
     variant (k=1) -- the two DL baselines of Figure 6.
+
+    ``hw_state`` is Stage III's batched Holt-Winters state: row i models
+    ``list(descs)[i]``.  ``descs`` only grows, so a cycle's names extend
+    the rows of the one before, and new names get fresh rows appended.
     """
 
     name = "predictive"
@@ -127,7 +134,8 @@ class PredictiveTuner:
         self.classifier = classifier or default_classifier()
         self.use_forecaster = use_forecaster
         self.immediate = immediate
-        self.models: Dict[str, hw.HWState] = {}  # per-index forecaster
+        self.hw_state: Optional[hw.HWState] = None  # row i: names[i]
+        self._smoothing: Tuple[tuple, tuple] = ((), ())  # values, tensors
         self.descs: Dict[str, IndexDescriptor] = {}  # every desc ever seen
         self.forecasts: Dict[str, float] = {}  # U from last Stage III
         # per-(table, n_shards) heat forecaster (shard-aware tuning)
@@ -216,19 +224,37 @@ class PredictiveTuner:
         # Stage III: index utility forecasting ------------------------
         # (the per-shard heat models were advanced at cycle start)
         with telemetry.span("tuner.forecast"):
-            if self.use_forecaster:
-                for name in names:
-                    st = self.models.get(name)
-                    if st is None:
-                        st = hw.init_state(self.cfg.season_len,
-                                           device=db.device)
-                    st = hw.update(
-                        st, observed[name], cfg.alpha, cfg.beta, cfg.gamma
-                    )
-                    self.models[name] = st
-                    self.forecasts[name] = float(hw.forecast(st, 1))
+            if self.use_forecaster and names:
+                self._forecast(names, observed)
         self.cycles += 1
         return CyclePlan(quanta=quanta)
+
+    def _n_modelled(self) -> int:
+        """How many descriptors Stage III has modelled: the first that
+        many of ``names``."""
+        return 0 if self.hw_state is None else self.hw_state.level.shape[0]
+
+    def _forecast(self, names, observed) -> None:
+        """Stage III: one observation per descriptor into the batched
+        state (fresh rows for names new this cycle bootstrap from it),
+        and every one-step forecast read back at once."""
+        cfg, dev = self.cfg, self.db.device
+        st, k = self.hw_state, len(names) - self._n_modelled()
+        if k:
+            fresh = hw.init_state(cfg.season_len, batch=k, device=dev)
+            st = fresh if st is None else hw.HWState(
+                *(torch.cat(pair) for pair in zip(st, fresh)))
+        values = (cfg.alpha, cfg.beta, cfg.gamma)
+        if self._smoothing[0] != values:
+            self._smoothing = (values, tuple(
+                torch.tensor(v, dtype=torch.float32, device=dev)
+                for v in values))
+        ys = np.array([observed[name] for name in names], np.float32)
+        st = hw.update_batch(st, torch.from_numpy(ys).to(dev),
+                             *self._smoothing[1])
+        self.hw_state = st
+        telemetry.count("tuner.forecast_series", len(names))
+        self.forecasts.update(zip(names, hw.forecast_batch(st, 1).tolist()))
 
     def _candidates(self):
         """Register the window's candidates; the monitor window's scan
@@ -269,9 +295,10 @@ class PredictiveTuner:
         utilities, sizes, forced keeps and the observed utilities."""
         db, cfg = self.db, self.cfg
         names = list(self.descs)
+        modelled = self._n_modelled()
         utilities, sizes, force = [], [], []
         observed: Dict[str, float] = {}
-        for name in names:
+        for i, name in enumerate(names):
             desc = self.descs[name]
             n_rows = db.tables[desc.table].n_rows
             o = cm.overall_utility(
@@ -285,7 +312,7 @@ class PredictiveTuner:
             )
             o = max(o, 0.0) + upd_u
             observed[name] = o
-            if self.use_forecaster and name in self.models:
+            if self.use_forecaster and i < modelled:
                 u = max(self.forecasts.get(name, o), o)
             else:
                 u = o

@@ -24,9 +24,11 @@ import torch
 
 import repro.api as R
 from repro.core import build_service as R_bs
+from repro.core import cost_model as R_cm
 from repro.core import forecaster as R_hw
 from repro_torch import api as P
 from repro_torch.core import build_service as P_bs
+from repro_torch.core import cost_model as P_cm
 from repro_torch.core import forecaster as P_hw
 from repro_torch.core.convert import from_reference
 from repro_torch.core.executor import Query as PQuery
@@ -111,6 +113,90 @@ def test_quickstart_loop_matches_reference():
         assert rw == pw
         _assert_same_state(rdb, pdb)
     assert kernel_tiers > 0 and hybrid_bursts > 0
+
+
+# 0.75 * HALFWAY_Y = 2^39 (1.5 + 9 * 2^-24) lies halfway between two
+# float32 values, the lower one even.  A series bootstrapped from an
+# observation of 0 holds level EPS and trend 0, so at alpha = 0.75 the
+# level's fused multiply-add adds 0.25 * EPS to that midpoint: lost in
+# float64, it lifts the exact sum to the upper neighbour
+# (tests/test_torch_forecaster.py, the "level" case).
+HALFWAY_Y = 2.0**40 * (1 + 3 * 2.0**-23)
+
+
+def test_batched_stage_three_matches_reference_as_descriptors_appear(
+        monkeypatch):
+    """Three phases on shifting attributes, so descriptors join the
+    batched state in mid-run cycles: every cycle's forecasts equal the
+    reference's per-descriptor loop bit for bit.  The first descriptor
+    that appears after cycle 2 observes 0 in its first cycle (a lane at
+    t == 0 beside lanes at t > 0), then ``HALFWAY_Y`` in its second (one
+    lane on a halfway sum, the others not)."""
+    src, rdb, pdb, rtun, ptun = _twin(
+        storage_budget_bytes=50e3, pages_per_cycle=8,
+        max_build_pages_per_cycle=12, candidate_min_count=2, alpha=0.75)
+    plan = {"cycle": 0, "known": set(), "target": None, "since": None}
+
+    def forced(desc):
+        """The observation forced on the target this cycle, or None."""
+        if (plan["target"] is None and plan["cycle"] >= 2
+                and desc.name not in plan["known"]):
+            plan["target"], plan["since"] = desc.name, plan["cycle"]
+        if desc.name == plan["target"]:
+            return {0: 0.0, 1: HALFWAY_Y}.get(plan["cycle"] - plan["since"])
+        return None
+
+    for cm in (R_cm, P_cm):
+        def overall(desc, *a, _f=cm.overall_utility):
+            y = forced(desc)
+            return _f(desc, *a) if y is None else y
+
+        def lookups(desc, *a, _f=cm.update_lookup_utility):
+            return _f(desc, *a) if forced(desc) is None else 0.0
+
+        monkeypatch.setattr(cm, "overall_utility", overall)
+        monkeypatch.setattr(cm, "update_lookup_utility", lookups)
+
+    gen = R.QueryGen(src, selectivity=0.02, seed=9)
+    grown, mixed = [], False
+    for cycle, (a, b) in enumerate([(3, 5)] * 4 + [(6, 2)] * 4
+                                   + [(8, 4)] * 4):
+        qs = [gen.low_s(attr=a) for _ in range(4)] + [
+            gen.mod_s(attrs=(a, b)) for _ in range(2)]
+        # Few updates: a full table meets the reference's lost last row
+        # (ROADMAP.md queue 3 item 1).
+        if cycle % 3 == 0:
+            qs.append(gen.low_u(attr=a))
+        rs = rdb.execute_batch(qs, use_kernel=True)
+        ps = pdb.execute_batch([_port_query(q) for q in qs], use_kernel=True)
+        assert [_stats(x) for x in rs] == [_stats(x) for x in ps]
+        plan["cycle"], plan["known"] = cycle, set(ptun.descs)
+        before = 0 if ptun.hw_state is None else len(ptun.hw_state.t)
+        rp, pp = rtun.decide(), ptun.decide()
+        _assert_same_cycle(rp, pp, rtun, ptun)
+        assert list(ptun.forecasts) == list(rtun.forecasts)
+        t = ptun.hw_state.t
+        grown.append(len(t) - before)
+        if before and len(t) > before:  # rows at t == 0 beside older ones
+            mixed |= bool((t[:before] > 1).all() and (t[before:] == 1).all())
+        for name, rs_ in rtun.models.items():
+            row = list(ptun.descs).index(name)
+            _assert_hw_equal(rs_, P_hw.HWState(
+                *(x[row] for x in ptun.hw_state)))
+        if plan["target"] is not None and (
+                cycle - plan["since"] == 1):
+            # The halfway lane: rounding twice would give the even value.
+            row = list(ptun.descs).index(plan["target"])
+            prev = np.float32(0.25) * np.float32(P_hw.EPS)
+            twice = np.float32(0.75 * HALFWAY_Y + float(prev))
+            assert float(ptun.hw_state.level[row]) != float(twice)
+        assert sum(R_bs.apply_quantum(rdb, q) for q in rp.quanta) == sum(
+            P_bs.apply_quantum(pdb, q) for q in pp.quanta)
+        _assert_same_state(rdb, pdb)
+    assert pdb.tables["narrow"].n_rows < pdb.tables["narrow"].capacity
+    assert plan["target"] is not None and plan["since"] <= 10
+    assert grown[0] > 0 and sum(g > 0 for g in grown[1:]) >= 2
+    assert mixed
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

@@ -14,6 +14,7 @@ import threading
 from collections import Counter
 
 import pytest
+import torch
 
 from repro_torch import api as P
 from repro_torch import telemetry
@@ -292,3 +293,58 @@ def test_exec_stats_wall_is_the_dispatch_span(tracer):
     (dispatch,) = [s for s in spans if s.name == "engine.dispatch"]
     assert stats.wall_s == (dispatch.end_ns - dispatch.start_ns) / 1e9
     assert spans[dispatch.parent].name == "executor.execute"
+
+
+def test_stage_three_is_one_batched_step_per_cycle(tracer, monkeypatch):
+    """Each cycle calls the forecaster's update and forecast once,
+    however many descriptors the tuner has seen; ``tuner.forecast_series``
+    counts them, and the batched state's rows follow ``names``: row i
+    is the scalar state of ``names[i]``'s observations, bit for bit."""
+    from repro_torch.core import forecaster as hw
+
+    calls = Counter()
+    for fn in ("update", "update_batch", "forecast", "forecast_batch"):
+        def counted(*a, _fn=getattr(hw, fn), _name=fn, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(hw, fn, counted)
+    db = fresh_db()
+    tuner = P.make_dl_tuner(db, "predictive",
+                            P.TunerConfig(candidate_min_count=2))
+    seen = []
+    utilities = tuner._utilities
+
+    def recorded(*a):
+        out = utilities(*a)
+        seen.append((out[0], out[4]))
+        return out
+
+    tuner._utilities = recorded
+    gen = P.QueryGen(SRC, selectivity=0.01, seed=31)
+    for cycle, (a, b) in enumerate([(2, 5)] * 3 + [(7, 1)] * 3
+                                   + [(4, 9)] * 3):
+        for q in [gen.low_s(attr=a), gen.low_s(attr=a),
+                  gen.mod_s(attrs=(a, b)), gen.mod_s(attrs=(b, a))]:
+            db.execute(q)
+        calls.clear()
+        tracer.drain()
+        tuner.decide()
+        names = seen[-1][0]
+        assert names == list(tuner.descs) and names
+        assert tracer.drain().counts["tuner.forecast_series"] == len(names)
+        assert dict(calls) == {"update": 1, "update_batch": 1,
+                               "forecast": 1, "forecast_batch": 1}
+        assert len(tuner.hw_state.t) == len(names)
+    widths = [len(names) for names, _ in seen]
+    assert widths == sorted(widths) and len(set(widths)) >= 3
+    cfg = tuner.cfg
+    for i, name in enumerate(seen[-1][0]):
+        st = hw.init_state(cfg.season_len, device="cpu")
+        for names, observed in seen:
+            if name in observed:
+                st = hw.update(st, observed[name], cfg.alpha, cfg.beta,
+                               cfg.gamma)
+        for got, want in zip(tuner.hw_state, st):
+            assert torch.equal(got[i], want), name
+        assert tuner.forecasts[name] == float(hw.forecast(st, 1))
