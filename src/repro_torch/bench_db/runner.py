@@ -488,14 +488,15 @@ def _overlap_drainer(service: BuildService, res: RunResult,
 
     def overlap_quantum() -> float:
         total_ms = 0.0
-        for _ in range(service.drain_burst_size()):
-            units = service.apply_next()
-            if units <= 0.0:
-                continue
-            u_ms = units * cfg.time_per_unit_ms
-            res.tuner_work_units += units
-            res.tuner_overlapped_ms += u_ms
-            total_ms += u_ms
+        with telemetry.span("build.drain"):
+            for _ in range(service.drain_burst_size()):
+                units = service.apply_next()
+                if units <= 0.0:
+                    continue
+                u_ms = units * cfg.time_per_unit_ms
+                res.tuner_work_units += units
+                res.tuner_overlapped_ms += u_ms
+                total_ms += u_ms
         return total_ms
 
     return overlap_quantum
@@ -506,6 +507,9 @@ def _record_service(res: RunResult, service: Optional[BuildService]) -> None:
         res.build_pages_per_ms = service.pages_per_ms
         res.build_escalations = service.escalations
         res.fault_quarantined_builds = len(service.quarantined)
+        # The service ends with the call: what it still holds is dropped.
+        telemetry.count("build.quanta_left",
+                        len(service.queue) + len(service.retry_queue))
 
 
 def _finish_wall(db: Database, res: RunResult, t_start: float) -> None:

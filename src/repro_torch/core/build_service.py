@@ -30,9 +30,9 @@ in the port every build (``build_pages_vap``, ``build_page_list``, the
 sharded ``replace_shards``) returns new tensors and rebinds
 ``BuiltIndex.vap``, and ``PageCoverage``, which bitmap-mode quanta do
 mutate in place, is pinned as a ``CoverageView`` that copies the host
-bits and memoises its device tensors per version.  Any faster merge
-(an O(n) merge of new entries into the sorted old ones) must keep
-this rule: write into fresh tensors, or copy before writing.
+bits and memoises its device tensors per version.  The merge of new
+entries into the sorted old ones (``index._merge_sorted``) writes
+fresh tensors for the same reason.
 
 Bit-exactness (deterministic mode).  ``RunConfig.async_tuning ==
 "deterministic"`` replays the serialized schedule through the split
@@ -70,6 +70,13 @@ Replica lanes.  On a ``core.replica.ReplicaSet`` a quantum's
 (mirrored replicas are parallel machines), an id builds on that
 replica alone.  ``drain`` groups the queue by lane and charges the
 max over the lanes' totals.  A plain ``Database`` is one lane.
+
+Counters (``telemetry``): ``build.quanta_queued`` (quanta ``decide``
+queued), ``build.quanta_applied`` / ``build.quanta_stale`` (quanta
+``apply_next`` applied, or skipped because their index was dropped or
+finished) and ``build.escalations`` (escalated drain opportunities);
+the runner counts ``build.quanta_left``, the quanta still queued when
+a ``run_workload`` call returns, which are dropped with the service.
 """
 
 from __future__ import annotations
@@ -242,6 +249,7 @@ class BuildService:
             # unit of work, applied immediately.
             return self.tuner.tuning_cycle(idle=idle)
         plan = decide_fn(idle=idle)
+        queued = len(self.queue)
         for q in plan.quanta:
             if q.page_list:
                 # Slice the explicit page list in order: any quantum
@@ -260,6 +268,7 @@ class BuildService:
                     BuildQuantum(q.index_name, pages, q.shard, q.utility,
                                  replica=q.replica)
                 )
+        telemetry.count("build.quanta_queued", len(self.queue) - queued)
         return plan.decide_work
 
     # -- apply: drain quanta ---------------------------------------------
@@ -328,7 +337,10 @@ class BuildService:
         _sync(self.db)
         t0 = time.perf_counter()
         work = apply_quantum(self.db, quantum)
-        if work > 0.0:
+        if work <= 0.0:
+            telemetry.count("build.quanta_stale")
+        else:
+            telemetry.count("build.quanta_applied")
             _sync(self.db)
             dt_ms = max((time.perf_counter() - t0) * 1e3, 1e-6)
             rate = quantum.pages / dt_ms
@@ -352,6 +364,7 @@ class BuildService:
         if self.max_queue_depth is None or depth <= self.max_queue_depth:
             return 1
         self.escalations += 1
+        telemetry.count("build.escalations")
         burst = -(-depth // self.max_queue_depth)
         if self.pages_per_ms > 0.0:
             pages = [q.pages for q in itertools.islice(self.queue, burst)]

@@ -16,8 +16,11 @@ TUNER domain is [1, 1m]).
 Ordering: the reference merges with ``jnp.lexsort((kl, kh))``, a
 stable sort whose ties keep concatenation order (old entries before
 new ones).  Here the pair is packed into one int64 key
-``kh * 2**32 + (kl + 2**31)``, which orders exactly like the pair, and
-sorted once with ``stable=True`` -- the same permutation.
+``kh * 2**32 + (kl + 2**31)``, which orders exactly like the pair.
+The old entries are already in that order, so a build sorts only its
+new entries (``stable=True``) and merges them into the old run
+(``_merge_sorted``): the same arrays as the reference's sort of the
+whole concatenation, for a scan and a gather over the capacity.
 
 ``n_entries`` and ``built_pages`` are host ints; the key and rid
 arrays live on the table's device.
@@ -124,18 +127,57 @@ def keys_in_range(kh, kl, lo: KeyPair, hi: KeyPair):
 
 
 def packed_keys(kh, kl) -> torch.Tensor:
-    """int64 key ordering exactly like the (kh, kl) pair."""
-    return kh.to(torch.int64) * (2**32) + (kl.to(torch.int64) + 2**31)
+    """int64 key ordering exactly like the int32 (kh, kl) pair:
+    ``kh * 2**32 + (kl + 2**31)``.  It is written as the two 32-bit
+    words of each int64 (little-endian, as on x86 and the card): low
+    ``kl`` with its sign bit flipped, which is ``kl + 2**31`` unsigned,
+    high ``kh``.  Two passes, and no int64 temporary."""
+    words = torch.empty(kh.shape + (2,), dtype=torch.int32,
+                        device=kh.device)
+    torch.bitwise_xor(kl.to(torch.int32), I32_MIN, out=words[..., 0])
+    words[..., 1] = kh
+    return words.view(torch.int64).squeeze(-1)
 
 
-def _lexsort_merge(kh, kl, rids, capacity: int):
-    """Sort (key_hi, key_lo, rid) triples lexicographically (stable:
-    ties keep concatenation order), keep the first ``capacity``
-    (padding keys sort last)."""
-    with telemetry.span("index.sort"):
-        keys = packed_keys(kh, kl)
-        order = torch.sort(keys, stable=True).indices[:capacity]
-        return kh[order], kl[order], rids[order]
+def _merge_sorted(index: AdHocIndex, kh, kl, rids):
+    """The index's (key_hi, key_lo, rids) with new entries merged in,
+    cut to its capacity: the stable lexicographic sort of the
+    concatenation [old, new] (old entries first on equal keys; padding
+    keys sort last), without sorting the old, already sorted, run.
+
+    Only the new run is sorted.  Each new entry's slot in the merged
+    run is its rank plus the old entries at or below its packed key (a
+    binary search).  An old entry's source index at merged slot k is
+    the number of old entries before k: a scan over a step array that
+    is 1 at old slots and 0 at new ones.  Then each array is one gather
+    of the old run, and one scatter puts the new entries of all three.
+    New entries past the capacity land in one spare slot, which is cut
+    off.  The outputs are rows of one new buffer (no plan's pinned
+    state is written)."""
+    cap, m = index.capacity, int(kh.numel())
+    dev = index.key_hi.device
+    with telemetry.span("index.merge"):
+        with telemetry.span("index.sort"):
+            new, order = torch.sort(packed_keys(kh, kl), stable=True)
+        at = torch.searchsorted(packed_keys(index.key_hi, index.key_lo),
+                                new, right=True)
+        at += torch.arange(m, device=dev)
+        at.clamp_(max=cap)
+        # step[k + 1] is 1 where merged slot k takes an old entry, so the
+        # inclusive scan of step[:cap] counts the old entries before k.
+        step = torch.ones(cap + 2, dtype=torch.int32, device=dev)
+        step[:1].zero_()
+        step.index_fill_(0, at + 1, 0)
+        src = torch.cumsum(step[:cap], 0, dtype=torch.int32)
+        del step
+        # One buffer for the three arrays: column ``cap`` is the spare.
+        out = torch.empty((3, cap + 1), dtype=torch.int32, device=dev)
+        for row, a in zip(out, index[:3]):
+            torch.index_select(a, 0, src, out=row[:cap])
+        new_rows = torch.stack([kh.to(torch.int32), kl.to(torch.int32),
+                                rids.to(torch.int32)])
+        out[:, at] = new_rows[:, order]
+        return out[0, :cap], out[1, :cap], out[2, :cap]
 
 
 # ---------------------------------------------------------------------------
@@ -166,10 +208,7 @@ def build_pages_vap(index: AdHocIndex, table: Table, key_attrs: tuple,
     kh = torch.where(valid, kh, I32_MAX)
     kl = torch.where(valid, kl, I32_MAX)
 
-    mh = torch.cat([index.key_hi, kh])
-    ml = torch.cat([index.key_lo, kl])
-    mr = torch.cat([index.rids, new_rids.to(torch.int32)])
-    mh, ml, mr = _lexsort_merge(mh, ml, mr, index.capacity)
+    mh, ml, mr = _merge_sorted(index, kh, kl, new_rids)
     n_entries = index.n_entries + int(valid.sum())
     built = max(min(start + pages_per_cycle, full_pages), start)
     return AdHocIndex(mh, ml, mr, n_entries, built)
@@ -388,10 +427,7 @@ def _merge_new(index: AdHocIndex, kh, kl, rids) -> AdHocIndex:
     n = int(rids.numel())
     if n == 0:
         return index
-    mh, ml, mr = _lexsort_merge(torch.cat([index.key_hi, kh]),
-                                torch.cat([index.key_lo, kl]),
-                                torch.cat([index.rids, rids.to(torch.int32)]),
-                                index.capacity)
+    mh, ml, mr = _merge_sorted(index, kh, kl, rids)
     return AdHocIndex(mh, ml, mr, index.n_entries + n, index.built_pages)
 
 
@@ -837,11 +873,11 @@ def build_pages_at(index: AdHocIndex, table: Table, key_attrs: tuple,
 
     Callers pass only fully populated, not yet covered pages (the
     coverage bitmap is the dedup authority).  Same extraction and
-    stable merge as ``build_pages_vap``.  The reference pads the list
-    to a power of two to bound its jit cache; padding entries are
-    invalid keys that never survive the capacity cut (the merged tail
-    is a prefix of the old invalid tail), so the unpadded merge gives
-    the same arrays.
+    merge (``_merge_sorted``) as ``build_pages_vap``.  The reference
+    pads the list to a power of two to bound its jit cache; padding
+    entries are invalid keys that never survive the capacity cut (the
+    merged tail is a prefix of the old invalid tail), so the unpadded
+    merge gives the same arrays.
     """
     psz = table.page_size
     dev = table.device
@@ -855,10 +891,7 @@ def build_pages_at(index: AdHocIndex, table: Table, key_attrs: tuple,
     kh = torch.where(valid, kh, I32_MAX)
     kl = torch.where(valid, kl, I32_MAX)
 
-    mh = torch.cat([index.key_hi, kh])
-    ml = torch.cat([index.key_lo, kl])
-    mr = torch.cat([index.rids, new_rids.to(torch.int32)])
-    mh, ml, mr = _lexsort_merge(mh, ml, mr, index.capacity)
+    mh, ml, mr = _merge_sorted(index, kh, kl, new_rids)
     n_entries = index.n_entries + int(valid.sum())
     return AdHocIndex(mh, ml, mr, n_entries, index.built_pages)
 

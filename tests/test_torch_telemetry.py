@@ -272,7 +272,8 @@ def test_a_run_reaches_every_span_under_its_parent(mixture, batch,
         assert pairs[(stage, "tuner.decide")] >= cycles, stage
     assert pairs[("tuner.monitor", "tuner.decide")] == 2 * cycles
     assert pairs[("index.build", "tuner.cycle")] > 0
-    assert pairs[("index.sort", "index.build")] > 0
+    assert pairs[("index.merge", "index.build")] > 0
+    assert pairs[("index.sort", "index.merge")] > 0
     assert pairs[("runner.account", "-")] == 240
     for pair in expect:
         assert pairs[pair] > 0, pair
@@ -283,6 +284,67 @@ def test_a_run_reaches_every_span_under_its_parent(mixture, batch,
         assert trace.counts["index.pages_adopted"] > 0
     else:
         assert "executor.crack_adopt" not in {s.name for s in trace.spans}
+
+
+# A cycle of 16 pages makes two 8-page quanta per index, so the lane's
+# queue outgrows a cap of 4 and its drains escalate.
+LANE = dict(tuner_cfg={"pages_per_cycle": 16,
+                       "max_build_pages_per_cycle": 16},
+            async_tuning="overlap", build_queue_cap=4)
+
+
+def test_the_overlap_lane_drains_quanta_under_its_spans():
+    """On the overlap lane every build runs inside a drain between a
+    burst's dispatches, and the merge inside the build; each quantum
+    queued is applied, skipped as stale or left when the call
+    returns."""
+    trace, cycles, pages = traced_run("read_heavy", 6, True, **LANE)
+    pairs = parents(trace)
+    assert cycles > 0
+    assert ("tuner.cycle", "-") not in pairs  # the lane calls decide
+    assert pairs[("build.drain", "executor.execute_batch")] > 0
+    assert pairs[("index.build", "build.drain")] > 0
+    assert sum(n for (name, parent), n in pairs.items()
+               if name == "index.build") == pairs[("index.build",
+                                                   "build.drain")]
+    assert pairs[("index.merge", "index.build")] > 0
+    n = trace.counts
+    assert n["build.quanta_applied"] > 0 and n["build.escalations"] > 0
+    assert n["build.quanta_queued"] == (n["build.quanta_applied"]
+                                        + n.get("build.quanta_stale", 0)
+                                        + n["build.quanta_left"])
+    assert n["index.pages_built"] == pages > 0
+
+
+def test_off_the_lane_costs_one_shared_no_op(monkeypatch):
+    """With the tracer off, every span an overlap run opens, the
+    lane's and the merge's among them, is the one shared no-op."""
+    telemetry.disable()
+    telemetry.drain()
+    opened = Counter()
+    span = telemetry.span
+
+    def counted(name):
+        out = span(name)
+        opened[name, id(out)] += 1
+        return out
+
+    monkeypatch.setattr(telemetry, "span", counted)
+    db = fresh_db()
+    tuner = P.make_dl_tuner(db, "predictive", P.TunerConfig(
+        **LANE["tuner_cfg"]))
+    gen = P.QueryGen(SRC, selectivity=0.01, seed=23)
+    wl = P.hybrid_workload(gen, "read_heavy", total=120, phase_len=60,
+                           seed=2)
+    P.run_workload(db, tuner, wl, P.RunConfig(
+        execution=P.ExecOptions(read_batch_size=6),
+        tuning=P.TuningOptions(async_tuning="overlap", build_queue_cap=4),
+        time_per_unit_ms=TIME_PER_UNIT_MS))
+    names = {name for name, _ in opened}
+    assert {"build.drain", "index.build", "index.merge"} <= names
+    assert {obj for _, obj in opened} == {id(telemetry._NOOP)}
+    out = telemetry.drain()
+    assert out.spans == [] and out.counts == {}
 
 
 def test_exec_stats_wall_is_the_dispatch_span(tracer):
