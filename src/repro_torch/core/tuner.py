@@ -435,7 +435,13 @@ class PredictiveTuner:
     def _range_heat(self, b, pages: np.ndarray):
         """How many of the monitor window's range predicates on the
         index's leading key attribute each page's zone-map range
-        intersects; None when the window has no such predicate."""
+        intersects; None when the window has no such predicate.
+
+        A range [lo, hi] misses a page [pmin, pmax] when lo > pmax or
+        hi < pmin, never both while lo <= hi and pmin <= pmax: such a
+        page's heat is the ranges less the two counts, each a search in
+        sorted bounds.  Inverted ranges and empty pages (past the full
+        watermark) take the direct compare."""
         lead = b.desc.key_attrs[0]
         ranges = [
             (int(lo), int(hi))
@@ -447,10 +453,18 @@ class PredictiveTuner:
             return None
         mins, maxs = self.db.zone_map(b.desc.table, lead)
         pmin, pmax = mins[pages], maxs[pages]
-        heat = np.zeros(pages.size, np.int64)
-        for lo, hi in ranges:
-            heat += (pmin <= hi) & (pmax >= lo)
-        return heat
+        lo, hi = np.array(ranges, np.int64).T
+        fwd = lo <= hi
+        heat = (np.searchsorted(np.sort(lo[fwd]), pmax, side="right")
+                - np.searchsorted(np.sort(hi[fwd]), pmin, side="left"))
+        empty = np.flatnonzero(pmin > pmax)
+        if empty.size:
+            heat[empty] = _meets(pmin[empty], pmax[empty], lo[fwd], hi[fwd])
+        heat += _meets(pmin, pmax, lo[~fwd], hi[~fwd])
+        telemetry.count("tuner.heat_ranges", len(ranges))
+        telemetry.count("tuner.heat_direct",
+                        int(np.count_nonzero(~fwd)) + empty.size)
+        return heat.astype(np.int64, copy=False)
 
     def _hot_range_pages(self, b, step: int):
         """Hot-range-first build order for a bitmap-mode index: the
@@ -465,8 +479,16 @@ class PredictiveTuner:
         heat = self._range_heat(b, open_pages)
         if heat is None or not heat.any():
             return None
-        order = np.lexsort((open_pages, -heat))
-        return [int(p) for p in open_pages[order][: int(step)]]
+        # One unique key per page, in (-heat, page) order: the first
+        # ``step`` without sorting the rest.
+        key = open_pages - heat * (int(open_pages.max()) + 1)
+        step = int(step)
+        if step < key.size:
+            first = np.argpartition(key, step - 1)[:step]
+            order = first[np.argsort(key[first])]
+        else:
+            order = np.argsort(key)
+        return [int(p) for p in open_pages[order]]
 
     def _decay_cold_pages(self) -> None:
         """Memory-cap decay: while the built footprint exceeds the
@@ -495,6 +517,15 @@ class PredictiveTuner:
             cov.clear_pages(covered[order[:n_drop]])
             b.building, b.complete = True, False
             over -= n_drop * page_bytes
+
+
+def _meets(pmin, pmax, lo, hi) -> np.ndarray:
+    """For each page [pmin, pmax], how many of the ranges [lo, hi] it
+    intersects, compared range by range."""
+    heat = np.zeros(pmin.size, np.int64)
+    for l, h in zip(lo.tolist(), hi.tolist()):
+        heat += (pmin <= h) & (pmax >= l)
+    return heat
 
 
 def make_dl_tuner(

@@ -27,6 +27,7 @@ import torch
 import repro.api as R
 from repro.core import build_service as R_bs
 from repro.core import index as R_ix
+from repro.core import monitor as R_mon
 from repro.core import table as R_tb
 from repro.kernels import ops as R_ops
 from repro.kernels.batched_filter_agg import (
@@ -37,6 +38,7 @@ from repro_torch import api as P
 from repro_torch.core import build_service as P_bs
 from repro_torch.core import hybrid_scan as P_hs
 from repro_torch.core import index as P_ix
+from repro_torch.core import monitor as P_mon
 from repro_torch.core.convert import coverage_from_reference, from_reference
 from repro_torch.core.executor import Query as PQuery
 from repro_torch.kernels import batched_filter_agg as bfa
@@ -431,6 +433,126 @@ def test_coverage_burst_loop_matches_reference():
         for name, rb in rdb.indexes.items():
             _assert_same_index(rb, pdb.indexes[name])
     assert page_lists > 0 and masked_non_prefix > 0 and decayed > 0
+
+
+# ---------------------------------------------------------------------------
+# The hot-range scheduler: page heat and the page order it builds in
+# ---------------------------------------------------------------------------
+
+BENCH_PAGES = 58_594  # the benchmark's narrow table: 58,594 pages
+
+
+def _bench_zone_map(db, n_full, seed):
+    """``db``'s zone map of attribute 1 with the first ``n_full`` pages'
+    ranges those of 256 folded Zipf(1.25) values a page, the benchmark's
+    pages: most span nearly the whole 1M domain, so heat ties."""
+    rng = np.random.default_rng(seed)
+    pool = rng.zipf(1.25, size=1 << 16) % 1_000_000 * 2654435761
+    v = (pool % 1_000_000 + 1)[rng.integers(0, pool.size, (n_full, 256))]
+    mins, maxs = (a.copy() for a in db.zone_map("narrow", 1))
+    mins[:n_full], maxs[:n_full] = v.min(axis=1), v.max(axis=1)
+    return mins, maxs
+
+
+def _width_ranges(rng, n, width):
+    return [(1, int(lo), int(lo) + width)
+            for lo in rng.integers(1, 1_000_000 - width, n)]
+
+
+def _edge_ranges(rng, mins, maxs, n, width=5_000):
+    """Ranges that end on a page's zone-map bound: one starting at a
+    page's max, one ending at another page's min."""
+    i, j = rng.integers(0, mins.size, (2, n))
+    return ([(1, int(maxs[k]), int(maxs[k]) + width) for k in i]
+            + [(1, int(mins[k]) - width, int(mins[k])) for k in j])
+
+
+def _inverted(ranges, k):
+    """``ranges`` with its first ``k`` turned the wrong way round."""
+    return [(a, hi, lo) for a, lo, hi in ranges[:k]] + ranges[k:]
+
+
+# name: (shards, rows, page size, benchmark zone map, the window's range
+# predicates as (attr, lo, hi), one record each, from (rng, the full
+# pages' zone-map mins and maxs)).  I32_MIN..I32_MAX meets the empty
+# zone range of a page past the full watermark.
+HEAT_CASES = {
+    "ties_edges_and_duplicates": (1, N_ROWS, PSZ, False, lambda rng, lo, hi: (
+        _width_ranges(rng, 30, 10_000) * 3 + _edge_ranges(rng, lo, hi, 20)
+        + [(3, 5, 9_000), (1, 400_000, 400_000)])),
+    "inverted_and_whole_domain": (1, N_ROWS, PSZ, False, lambda rng, lo, hi: (
+        _inverted(_width_ranges(rng, 40, 10_000), 6)
+        + [(1, I32_MIN, I32_MAX)])),
+    "no_range_on_the_leading_attr": (1, N_ROWS, PSZ, False,
+                                     lambda rng, lo, hi: [
+                                         (3, 1, 500_000), (2, 10, 20)]),
+    "4_shards": (4, N_ROWS, PSZ, False, lambda rng, lo, hi: _inverted(
+        _width_ranges(rng, 30, 10_000) + _edge_ranges(rng, lo, hi, 10), 3)
+        * 2),
+    "benchmark_pages": (1, BENCH_PAGES * 4, 4, True,
+                        lambda rng, lo, hi: _width_ranges(rng, 236, 10_000)
+                        + _edge_ranges(rng, lo, hi, 10)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEAT_CASES))
+def test_range_heat_and_hot_pages_match_reference(case):
+    """The port's ``_range_heat`` and ``_hot_range_pages`` against the
+    reference's on twin databases, array for array and list for list:
+    over the open pages, the covered ones and every page of the zone
+    map (those past the full watermark have an empty range), at steps
+    below, at and above the open-page count."""
+    shards, n_rows, psz, bench, ranges = HEAT_CASES[case]
+    src = R.make_tuner_db(n_rows=n_rows, page_size=psz, seed=7)
+    tables, _ = from_reference(
+        tables={k: [np.asarray(x) for x in t] for k, t in src.tables.items()},
+        device="cpu")
+    rdb = R.Database(dict(src.tables), num_shards=shards)
+    pdb = P.Database(tables, num_shards=shards)
+    for db in (rdb, pdb):
+        db.crack_on_scan = True
+    rb, pb = _create(rdb, pdb)
+    eligible = P.eligible_global_pages(pdb.tables["narrow"])
+    if bench:
+        assert eligible.size == BENCH_PAGES
+        zm = _bench_zone_map(pdb, eligible.size, seed=11)
+        for db in (rdb, pdb):
+            db.zone_map = lambda table, attr, _real=db.zone_map: (
+                zm if attr == 1 else _real(table, attr))
+    rng = np.random.default_rng(13)
+    picks = [int(p) for p in rng.permutation(eligible)[: eligible.size // 5]]
+    for db, b in ((rdb, rb), (pdb, pb)):
+        db.vap_build_step(b, pages=len(picks), page_list=picks)
+    np.testing.assert_array_equal(pb.coverage.built, rb.coverage.built)
+    mins, maxs = pdb.zone_map("narrow", 1)
+    window = ranges(rng, mins[eligible], maxs[eligible])
+    for db, record in ((rdb, R_mon.QueryRecord), (pdb, P_mon.QueryRecord)):
+        for attr, lo, hi in window:
+            db.monitor.observe(record(kind="scan", table="narrow",
+                                      pred_attrs=(attr,),
+                                      pred_ranges=((attr, lo, hi),)))
+    rtun, ptun = R.PredictiveTuner(rdb), P.PredictiveTuner(pdb)
+    rt = rdb.tables["narrow"]
+    covered = np.flatnonzero(pb.coverage.built)
+    open_pages = eligible[~pb.coverage.built[eligible]]
+    n_zone = pdb.zone_map("narrow", 1)[0].size
+    assert n_zone > eligible.size  # pages with an empty zone range
+    for pages in (open_pages, covered, np.arange(n_zone)):
+        want = rtun._range_heat(rb, rt, pages)
+        got = ptun._range_heat(pb, pages)
+        if case == "no_range_on_the_leading_attr":
+            assert want is None and got is None
+            continue
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want)
+        if pages is open_pages:  # ties, for the page id to break
+            assert np.unique(got).size < got.size
+    for step in (1, 7, open_pages.size - 1, open_pages.size,
+                 open_pages.size + 5):
+        want = rtun._hot_range_pages(rb, rt, step)
+        got = ptun._hot_range_pages(pb, step)
+        assert got == want, step
+        assert (got is None) == (case == "no_range_on_the_leading_attr")
 
 
 # ---------------------------------------------------------------------------

@@ -410,3 +410,39 @@ def test_stage_three_is_one_batched_step_per_cycle(tracer, monkeypatch):
         for got, want in zip(tuner.hw_state, st):
             assert torch.equal(got[i], want), name
         assert tuner.forecasts[name] == float(hw.forecast(st, 1))
+
+
+def test_range_heat_counts_the_window_ranges(tracer):
+    """A ``decide`` on a crack-mode database counts in
+    ``tuner.heat_ranges`` the window's range predicates on the building
+    index's leading attribute, and in ``tuner.heat_direct`` those ranges
+    and pages that took the direct compare: none while every range is
+    ordinary, some once an inverted range is in the window."""
+    db = fresh_db()
+    db.crack_on_scan = True
+    tuner = P.make_dl_tuner(db, "predictive", P.TunerConfig(
+        pages_per_cycle=2, max_build_pages_per_cycle=2))
+    gen = P.QueryGen(SRC, selectivity=0.01, seed=5)
+    inverted = P.Query(kind="scan", table="narrow", attrs=(1,),
+                       los=(600_000,), his=(500_000,), agg_attr=2,
+                       template="inverted")
+
+    def decide_counts():
+        tracer.drain()
+        tuner.decide()
+        (b,) = [b for b in db.indexes.values() if b.building]
+        assert b.coverage is not None
+        lead = b.desc.key_attrs[0]
+        ranges = sum(attr == lead
+                     for r in db.monitor.scan_records("narrow")
+                     for attr, _, _ in r.pred_ranges)
+        counts = tracer.drain().counts
+        assert counts["tuner.heat_ranges"] == ranges > 0
+        return counts["tuner.heat_direct"]
+
+    for _ in range(12):
+        db.execute(gen.low_s(attr=1))
+    assert decide_counts() == 0
+    db.execute(inverted)
+    db.execute(gen.low_s(attr=1))
+    assert decide_counts() > 0
