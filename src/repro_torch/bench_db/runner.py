@@ -518,6 +518,71 @@ def _finish_wall(db: Database, res: RunResult, t_start: float) -> None:
     res.wall_s = time.perf_counter() - t_start
 
 
+class _CycleClock:
+    """The tuning-cycle schedule of one run on the simulated clock:
+    ``next_cycle_ms``, the next due slot, and ``idle_credit_ms``, the
+    idle time that absorbs cycle work before any of it is charged."""
+
+    def __init__(self, db: Database, cfg: RunConfig, res: RunResult,
+                 run_cycle, idle_credit_ms: float = 0.0):
+        self.db, self.cfg, self.res = db, cfg, res
+        self.run_cycle = run_cycle  # idle flag -> the cycle's work units
+        self.next_cycle_ms = (
+            db.clock_ms + cfg.tuning_interval_ms
+            if cfg.tuning_interval_ms
+            else float("inf")
+        )
+        self.idle_credit_ms = idle_credit_ms
+
+    def fire_due(self, idle_until_ms: float = float("-inf"),
+                 charged_ms: float = 0.0) -> float:
+        """Fire the due cycles, at most ``max_cycles_per_gap``, each idle
+        while the clock is before ``idle_until_ms`` or credit is left;
+        charge each cycle's work past the credit to the clock, then drop
+        the slots missed.  Returns ``charged_ms`` with every cycle's
+        charge added in the order they fired."""
+        db, cfg, res = self.db, self.cfg, self.res
+        next_cycle_ms = self.next_cycle_ms
+        fired = 0
+        while db.clock_ms >= next_cycle_ms and fired < cfg.max_cycles_per_gap:
+            idle = db.clock_ms < idle_until_ms or self.idle_credit_ms > 0.0
+            work = self.run_cycle(idle)
+            work_ms = work * cfg.time_per_unit_ms
+            res.tuner_work_units += work
+            absorbed = min(self.idle_credit_ms, work_ms)
+            self.idle_credit_ms -= absorbed
+            charged = work_ms - absorbed
+            res.tuner_charged_ms += charged
+            charged_ms += charged
+            db.clock_ms += max(charged, 1e-9)
+            next_cycle_ms += cfg.tuning_interval_ms
+            fired += 1
+        if db.clock_ms >= next_cycle_ms:  # drop missed slots
+            missed = (db.clock_ms - next_cycle_ms) // cfg.tuning_interval_ms
+            next_cycle_ms += (int(missed) + 1) * cfg.tuning_interval_ms
+        self.next_cycle_ms = next_cycle_ms
+        return charged_ms
+
+
+def _record(res: RunResult, db: Database, phase: int, stats,
+            latency: float) -> None:
+    """One served statement's entries in the result (both drivers)."""
+    res.latencies_ms.append(latency)
+    res.phases.append(phase)
+    res.cumulative_ms += latency
+    res.results.append((stats.agg_sum, stats.count, stats.rows_modified))
+    if stats.tier:
+        res.execution_tiers[stats.tier] = (
+            res.execution_tiers.get(stats.tier, 0) + 1
+        )
+    res.index_counts.append(len(db.indexes))
+    fracs = [
+        b.built_fraction(db.tables[b.desc.table])
+        for b in db.indexes.values()
+    ]
+    res.built_fraction.append(float(np.mean(fracs)) if fracs else 0.0)
+
+
 def _run_closed_loop(
     db: Database, tuner, workload: Workload, cfg: RunConfig
 ) -> RunResult:
@@ -531,13 +596,7 @@ def _run_closed_loop(
     overlap = cfg.async_tuning == "overlap"
 
     res = RunResult()
-    next_cycle_ms = (
-        db.clock_ms + cfg.tuning_interval_ms
-        if cfg.tuning_interval_ms
-        else float("inf")
-    )
     idle_until_ms = db.clock_ms + cfg.idle_at_phase_start_ms
-    idle_credit_ms = cfg.idle_at_phase_start_ms
     blocking_ms = 0.0   # carried into the next query's latency
     prev_phase = 0
 
@@ -570,37 +629,24 @@ def _run_closed_loop(
 
     overlap_quantum = (_overlap_drainer(service, res, cfg) if overlap
                        else None)
+    cycles = _CycleClock(db, cfg, res, run_cycle,
+                         idle_credit_ms=cfg.idle_at_phase_start_ms)
 
     def run_due_cycles():
-        nonlocal next_cycle_ms, idle_credit_ms, blocking_ms
+        nonlocal blocking_ms
         if cfg.tuning_interval_ms is None:
             return
-        fired = 0
-        while db.clock_ms >= next_cycle_ms and fired < cfg.max_cycles_per_gap:
-            idle = (db.clock_ms < idle_until_ms) or idle_credit_ms > 0.0
-            work = run_cycle(idle)
-            work_ms = work * cfg.time_per_unit_ms
-            res.tuner_work_units += work
-            absorbed = min(idle_credit_ms, work_ms)
-            idle_credit_ms -= absorbed
-            charged = work_ms - absorbed
-            res.tuner_charged_ms += charged
-            blocking_ms += charged
-            db.clock_ms += max(charged, 1e-9)
-            next_cycle_ms += cfg.tuning_interval_ms
-            fired += 1
-        if db.clock_ms >= next_cycle_ms:  # drop missed slots
-            missed = (db.clock_ms - next_cycle_ms) // cfg.tuning_interval_ms
-            next_cycle_ms += (int(missed) + 1) * cfg.tuning_interval_ms
+        blocking_ms = cycles.fire_due(idle_until_ms, blocking_ms)
         if overlap:
             # Idle windows feed the concurrent build lane too: drain
             # carryover quanta against the idle credit.
-            while idle_credit_ms > 0.0 and service.pending():
-                idle_credit_ms = max(idle_credit_ms - overlap_quantum(), 0.0)
+            while cycles.idle_credit_ms > 0.0 and service.pending():
+                cycles.idle_credit_ms = max(
+                    cycles.idle_credit_ms - overlap_quantum(), 0.0)
 
     def account(phase, q, stats):
         """Per-query bookkeeping shared by the single and batch paths."""
-        nonlocal blocking_ms, idle_credit_ms
+        nonlocal blocking_ms
         with telemetry.span("runner.account"):
             if stats is None:
                 # A dropped statement (recovery off, routed to a dead
@@ -613,26 +659,11 @@ def _run_closed_loop(
             db.clock_ms += extra_ms
             lat = stats.latency_ms + extra_ms + blocking_ms
             blocking_ms = 0.0
-            res.latencies_ms.append(lat)
-            res.phases.append(phase)
-            res.cumulative_ms += lat
-            res.results.append(
-                (stats.agg_sum, stats.count, stats.rows_modified))
-            if stats.tier:
-                res.execution_tiers[stats.tier] = (
-                    res.execution_tiers.get(stats.tier, 0) + 1
-                )
-            res.index_counts.append(len(db.indexes))
-            fracs = [
-                b.built_fraction(db.tables[b.desc.table])
-                for b in db.indexes.values()
-            ]
-            res.built_fraction.append(
-                float(np.mean(fracs)) if fracs else 0.0)
+            _record(res, db, phase, stats, lat)
             if cfg.arrival_ms > 0.0 and lat < cfg.arrival_ms:
                 gap = cfg.arrival_ms - lat
                 db.clock_ms += gap
-                idle_credit_ms += gap
+                cycles.idle_credit_ms += gap
 
     # Read bursts: consecutive batchable scans are staged and submitted
     # through the batched execution path in one dispatch.  Tuning
@@ -664,15 +695,15 @@ def _run_closed_loop(
                     for name in list(db.indexes):
                         db.drop_index(name)
                 idle_until_ms = db.clock_ms + cfg.idle_at_phase_start_ms
-                idle_credit_ms += cfg.idle_at_phase_start_ms
+                cycles.idle_credit_ms += cfg.idle_at_phase_start_ms
                 if cfg.idle_at_phase_start_ms > 0:
                     # traverse the idle window so due cycles fire inside
                     end = idle_until_ms
                     while db.clock_ms < end and cfg.tuning_interval_ms:
-                        db.clock_ms = min(end, max(next_cycle_ms,
+                        db.clock_ms = min(end, max(cycles.next_cycle_ms,
                                                    db.clock_ms))
                         run_due_cycles()
-                        if next_cycle_ms > end:
+                        if cycles.next_cycle_ms > end:
                             break
                     db.clock_ms = max(db.clock_ms, end)
                 prev_phase = phase
@@ -743,12 +774,6 @@ def _run_open_loop(
     phase_arr = np.array([p for p, _ in items], np.int64)
 
     res = RunResult()
-    next_cycle_ms = (
-        db.clock_ms + cfg.tuning_interval_ms
-        if cfg.tuning_interval_ms
-        else float("inf")
-    )
-    idle_credit_ms = 0.0
     served = 0                 # stream position: queries dispatched
     staged_end = 0             # end of the burst currently being formed
     ewma_service_ms = 0.0      # measured per-query service latency
@@ -812,71 +837,39 @@ def _run_open_loop(
 
     overlap_quantum = (_overlap_drainer(service, res, cfg) if overlap
                        else None)
+    cycles = _CycleClock(db, cfg, res, run_cycle)
 
     def run_due_cycles() -> None:
-        nonlocal next_cycle_ms, idle_credit_ms
         if cfg.tuning_interval_ms is None:
             return
-        fired = 0
-        while db.clock_ms >= next_cycle_ms and fired < cfg.max_cycles_per_gap:
-            work = run_cycle(idle_credit_ms > 0.0)
-            work_ms = work * cfg.time_per_unit_ms
-            res.tuner_work_units += work
-            absorbed = min(idle_credit_ms, work_ms)
-            idle_credit_ms -= absorbed
-            charged = work_ms - absorbed
-            res.tuner_charged_ms += charged
-            db.clock_ms += max(charged, 1e-9)
-            next_cycle_ms += cfg.tuning_interval_ms
-            fired += 1
-        if db.clock_ms >= next_cycle_ms:  # drop missed slots
-            missed = (db.clock_ms - next_cycle_ms) // cfg.tuning_interval_ms
-            next_cycle_ms += (int(missed) + 1) * cfg.tuning_interval_ms
+        cycles.fire_due()
         if overlap:
             # idle gaps feed the concurrent lane (carryover quanta
             # ride the credit) -- but not while the throttle holds it
-            while idle_credit_ms > 0.0 and service.pending():
+            while cycles.idle_credit_ms > 0.0 and service.pending():
                 if cfg.build_throttle and pressured():
                     break
                 drained = overlap_quantum()
                 if drained <= 0.0:
                     break
-                idle_credit_ms = max(idle_credit_ms - drained, 0.0)
+                cycles.idle_credit_ms = max(
+                    cycles.idle_credit_ms - drained, 0.0)
 
     def advance_to(target_ms: float) -> None:
         """Idle the server up to ``target_ms`` (waiting for arrivals or
         the burst timer): the gap accrues idle credit and due tuning
         cycles fire inside it."""
-        nonlocal idle_credit_ms
         gap = target_ms - db.clock_ms
         if gap <= 0.0:
             return
-        idle_credit_ms += gap
+        cycles.idle_credit_ms += gap
         if cfg.tuning_interval_ms is not None:
-            while next_cycle_ms <= target_ms:
-                db.clock_ms = max(db.clock_ms, next_cycle_ms)
+            while cycles.next_cycle_ms <= target_ms:
+                db.clock_ms = max(db.clock_ms, cycles.next_cycle_ms)
                 run_due_cycles()
                 if db.clock_ms >= target_ms:
                     break
         db.clock_ms = max(db.clock_ms, target_ms)
-
-    def account_open(ph: int, stats, arrival: float,
-                     completion: float) -> None:
-        lat = completion - arrival
-        res.latencies_ms.append(lat)
-        res.phases.append(ph)
-        res.cumulative_ms += lat
-        res.results.append((stats.agg_sum, stats.count, stats.rows_modified))
-        if stats.tier:
-            res.execution_tiers[stats.tier] = (
-                res.execution_tiers.get(stats.tier, 0) + 1
-            )
-        res.index_counts.append(len(db.indexes))
-        fracs = [
-            b.built_fraction(db.tables[b.desc.table])
-            for b in db.indexes.values()
-        ]
-        res.built_fraction.append(float(np.mean(fracs)) if fracs else 0.0)
 
     t_start = time.perf_counter()
     if overlap:
@@ -905,7 +898,7 @@ def _run_open_loop(
             # Idle credit expires at dispatch: past idle time cannot
             # absorb future work, so cycles that fire during a backlog
             # are CHARGED -- the pressure the throttle relieves.
-            idle_credit_ms = 0.0
+            cycles.idle_credit_ms = 0.0
             if overlap and cfg.build_throttle:
                 # The deterministic lane's patience bound, for the
                 # concurrent lane's pause.
@@ -948,8 +941,8 @@ def _run_open_loop(
                     if ewma_service_ms == 0.0
                     else (1.0 - a) * ewma_service_ms + a * service_ms
                 )
-                account_open(bph, stats, float(arrivals[start + k]),
-                             base + cum)
+                _record(res, db, bph, stats,
+                        base + cum - float(arrivals[start + k]))
             served = d.end
     finally:
         if overlap:

@@ -36,7 +36,7 @@ the outer scan's contrib planes and the sorted live inner values.
 
 Fault injection is ported for one engine: with a ``fault_injector``
 (``repro_torch.faults.FaultInjector``) every single scan and every
-batched group dispatch draws once, after its latency is priced, for
+batched group dispatch draws once, after its dispatch returns, for
 transient retries (each pays the dispatch's latency again) and
 straggler time (a group shares it evenly over its members).  The
 draws are counter-based, so they fall exactly where the reference's
@@ -350,53 +350,57 @@ class Database:
         else:
             raise ValueError(q.kind)
         self.engine.dispatch_complete()
+        self._advance(q, stats, observe)
+        return stats
+
+    def _advance(self, q: Query, stats: ExecStats, observe: bool) -> None:
+        """Advance the clock past one statement and, with ``observe``,
+        write its monitor record (a join adds its inner side's)."""
         self.clock_ms += stats.latency_ms
-        if observe:
-            n_rows = self.tables[q.table].n_rows
+        if not observe:
+            return
+        n_rows = self.tables[q.table].n_rows
+        self.monitor.observe(
+            QueryRecord(
+                kind=q.kind,
+                table=q.table,
+                pred_attrs=tuple(q.attrs),
+                accessed_attrs=q.accessed_attrs,
+                selectivity=(
+                    stats.count / max(n_rows, 1)
+                    if q.kind == "scan"
+                    else stats.rows_modified / max(n_rows, 1)
+                ),
+                tuples_scanned=int(stats.cost_units),
+                used_index=stats.used_index,
+                rows_modified=stats.rows_modified,
+                ts_ms=self.clock_ms,
+                template=q.template,
+                shard_pages=stats.shard_pages,
+                pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
+            )
+        )
+        if q.join_table is not None:
+            # The inner side of an equi-join is an indexable access
+            # path too (HIGH-S benefits from join-attribute indexes).
+            n_inner = self.tables[q.join_table].n_rows
             self.monitor.observe(
                 QueryRecord(
-                    kind=q.kind,
-                    table=q.table,
-                    pred_attrs=tuple(q.attrs),
-                    accessed_attrs=q.accessed_attrs,
-                    selectivity=(
-                        stats.count / max(n_rows, 1)
-                        if q.kind == "scan"
-                        else stats.rows_modified / max(n_rows, 1)
-                    ),
-                    tuples_scanned=int(stats.cost_units),
+                    kind="scan",
+                    table=q.join_table,
+                    pred_attrs=(q.join_inner_attr,),
+                    selectivity=min(stats.count / max(n_inner, 1), 1.0),
+                    tuples_scanned=n_inner,
                     used_index=stats.used_index,
-                    rows_modified=stats.rows_modified,
+                    rows_modified=0,
                     ts_ms=self.clock_ms,
-                    template=q.template,
-                    shard_pages=stats.shard_pages,
-                    pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
+                    template=q.template + ":join",
                 )
             )
-            if q.join_table is not None:
-                # The inner side of an equi-join is an indexable access
-                # path too (HIGH-S benefits from join-attribute indexes).
-                n_inner = self.tables[q.join_table].n_rows
-                self.monitor.observe(
-                    QueryRecord(
-                        kind="scan",
-                        table=q.join_table,
-                        pred_attrs=(q.join_inner_attr,),
-                        selectivity=min(stats.count / max(n_inner, 1), 1.0),
-                        tuples_scanned=n_inner,
-                        used_index=stats.used_index,
-                        rows_modified=0,
-                        ts_ms=self.clock_ms,
-                        template=q.template + ":join",
-                    )
-                )
-        return stats
 
     def _exec_scan(self, q: Query) -> ExecStats:
         t = self.tables[q.table]
-        layout = self.layouts[q.table]
         plan = self.planner.plan_scan(q)
-        bi = plan.index
         r, wall = self._timed(
             "engine.dispatch",
             self.engine.scan,
@@ -409,35 +413,43 @@ class Database:
             q.agg_attr,
             contribs=q.join_table is not None,
         )
-        vals = torch.stack([r.agg_sum, r.count, r.pages_scanned,
-                            r.entries_probed, r.start_page]).tolist()
-        agg_sum, count, pages, probed, r_start = vals
-        if plan.path == "table":
-            start_page, entries = 0, 0.0
-        elif plan.path in ("hybrid", "hybrid_ps", "hybrid_masked"):
-            start_page, entries = r_start, float(probed)
-        else:  # pure index scan: no table pages touched
-            start_page, entries = t.n_pages, float(probed)
-        cost = scan_cost(
-            layout, q.accessed_attrs, t.page_size, pages, entries, start_page
-        )
+        raw = torch.stack([r.agg_sum, r.count, r.pages_scanned,
+                           r.entries_probed, r.start_page]).tolist()
+        fault = ((0, 0.0) if self.fault_injector is None
+                 else self.fault_injector.scan_fault())
+        return self._scan_stats(q, plan, raw, wall,
+                                self.engine.last_tier or "", fault, r)
+
+    def _scan_stats(self, q: Query, plan, raw, wall: float, tier: str,
+                    fault, outer=None) -> ExecStats:
+        """One scan's accounting from its dispatch's five numbers
+        ``raw`` (sum, count, pages scanned, entries probed, stitch
+        page; a table scan reports 0 for both of the last, a pure index
+        scan the table's page count): the cost, crack adoption, the
+        index's last use, a join's pairs and cost (``outer``, the
+        scan's result: joins never batch) and the latency.  ``fault``
+        is the dispatch's draw (retries, extra ms), a group's member
+        passing its share of the straggler time."""
+        agg_sum, count, pages, probed, start_page = raw
+        t = self.tables[q.table]
+        cost = scan_cost(self.layouts[q.table], q.accessed_attrs,
+                         t.page_size, pages, float(probed), start_page)
         populate = self._crack_adopt(q, plan, start_page)
         cost += populate
-        used = bi is not None
+        used = plan.index is not None
         if used:
-            bi.last_used_ms = self.clock_ms
+            plan.index.last_used_ms = self.clock_ms
         if q.join_table is not None:
-            count, join_cost, join_used = self._exec_join(q, r)
+            count, join_cost, join_used = self._exec_join(q, outer)
             cost += join_cost
             used = used or join_used
         lat_ms = cost * self.time_per_unit_ms
-        if self.fault_injector is not None:
-            # Transient errors re-issue the dispatch (its latency is
-            # paid again per retry); stragglers add flat extra time.
-            # Guarded so a fault-free draw leaves lat_ms untouched.
-            retries, extra_ms = self.fault_injector.scan_fault()
-            if retries or extra_ms:
-                lat_ms += retries * lat_ms + extra_ms
+        # Transient errors re-issue the dispatch (its latency is paid
+        # again per retry); stragglers add flat extra time.  Guarded so
+        # a fault-free draw leaves lat_ms untouched.
+        retries, extra_ms = fault
+        if retries or extra_ms:
+            lat_ms += retries * lat_ms + extra_ms
         return ExecStats(
             cost_units=cost,
             latency_ms=lat_ms,
@@ -447,7 +459,7 @@ class Database:
             count=count,
             populate_units=populate,
             shard_pages=self._shard_pages_of(t, plan),
-            tier=self.engine.last_tier or "",
+            tier=tier,
         )
 
     def _crack_adopt(self, q: Query, plan, start_page: int) -> float:
@@ -571,132 +583,83 @@ class Database:
     def _exec_scan_burst(
         self, pending, out, observe: bool, use_kernel: bool
     ) -> None:
-        """Plan, group and execute one burst of batchable scans."""
+        """Plan, group and dispatch one burst of batchable scans
+        against the burst-start snapshot, then replay their accounting
+        in input order (host-side, the same arithmetic and clock /
+        monitor trajectory as the per-query loop)."""
         self.planner.begin_snapshot()
         try:
-            groups: Dict[tuple, list] = {}
-            for pos, q in pending:
-                plan = self.planner.plan_scan(q)
-                key = (q.table, tuple(q.attrs), q.agg_attr) + plan.group_key
-                groups.setdefault(key, []).append((pos, q, plan))
-
-            ts = self.clock_ms_i32()
-            # pos -> (sum, count, pages, entries, start_page, wall, tier)
-            raw: Dict[int, tuple] = {}
-            # pos -> (retries, straggler-share ms).  One fault draw per
-            # GROUP dispatch (the dispatch is the fault domain); its
-            # straggler latency is shared evenly across members.
-            fault_by_pos: Dict[int, tuple] = {}
-            for group_key, members in groups.items():
-                table_name, attrs, agg_attr, _path, _idx = group_key
-                t = self.tables[table_name]
-                dev = t.device
-                los = torch.tensor([q.los for _, q, _ in members],
-                                   dtype=torch.int32, device=dev)
-                his = torch.tensor([q.his for _, q, _ in members],
-                                   dtype=torch.int32, device=dev)
-                tss = torch.full((len(members),), ts, dtype=torch.int32,
-                                 device=dev)
-                plan = members[0][2]
-                r, wall = self._timed(
-                    "engine.dispatch",
-                    self.engine.scan_batch,
-                    t,
-                    plan.path,
-                    plan.index_state,
-                    plan.key_attrs,
-                    attrs,
-                    los,
-                    his,
-                    tss,
-                    agg_attr,
-                    use_kernel=use_kernel,
-                    coverage=plan.pinned_coverage,
-                )
-                tier = self.engine.last_tier or ""
-                # Drain point between this group's dispatch and the
-                # next, outside the timed region: ``_timed`` waits for
-                # the group's kernels before it reads the clock, so a
-                # quantum's work never lands in a group's wall time.
-                self.engine.dispatch_complete()
-                if self.fault_injector is not None:
-                    retries, extra_ms = self.fault_injector.scan_fault()
-                    if retries or extra_ms:
-                        share = extra_ms / len(members)
-                        for pos, _q, _plan in members:
-                            fault_by_pos[pos] = (retries, share)
-                rows = torch.stack(list(r)).cpu().tolist()
-                for k, (pos, _q, _plan) in enumerate(members):
-                    raw[pos] = tuple(int(col[k]) for col in rows) + (
-                        wall / len(members),
-                        tier,
-                    )
+            raw = self._dispatch_burst(self._plan_burst(pending),
+                                       use_kernel)
         finally:
             self.planner.end_snapshot()
-
-        # Accounting replay in input order (host-side, same arithmetic
-        # and clock/monitor trajectory as the per-query loop).
-        plan_by_pos = {
-            pos: plan for ms in groups.values() for pos, _q, plan in ms
-        }
         for pos, q in pending:
-            agg_sum, count, n_pages, n_entries, start_page, wall, tier = raw[
-                pos
-            ]
-            t = self.tables[q.table]
-            layout = self.layouts[q.table]
-            plan_q = plan_by_pos[pos]
-            bi_q = plan_q.index
-            cost = scan_cost(
-                layout,
-                q.accessed_attrs,
-                t.page_size,
-                n_pages,
-                float(n_entries),
-                start_page,
-            )
             # Crack adoption replays per query, in order, as in the
             # sequential loop; the results stay burst-consistent since
             # every dispatch above ran against the pinned views.
-            populate = self._crack_adopt(q, plan_q, start_page)
-            cost += populate
-            used = bi_q is not None
-            if used:
-                bi_q.last_used_ms = self.clock_ms
-            lat_ms = cost * self.time_per_unit_ms
-            if pos in fault_by_pos:
-                retries, share = fault_by_pos[pos]
-                lat_ms += retries * lat_ms + share
-            stats = ExecStats(
-                cost_units=cost,
-                latency_ms=lat_ms,
-                wall_s=wall,
-                used_index=used,
-                agg_sum=agg_sum,
-                count=count,
-                populate_units=populate,
-                shard_pages=self._shard_pages_of(t, plan_q),
-                tier=tier,
-            )
-            self.clock_ms += stats.latency_ms
-            if observe:
-                self.monitor.observe(
-                    QueryRecord(
-                        kind="scan",
-                        table=q.table,
-                        pred_attrs=tuple(q.attrs),
-                        accessed_attrs=q.accessed_attrs,
-                        selectivity=stats.count / max(t.n_rows, 1),
-                        tuples_scanned=int(stats.cost_units),
-                        used_index=stats.used_index,
-                        rows_modified=0,
-                        ts_ms=self.clock_ms,
-                        template=q.template,
-                        shard_pages=stats.shard_pages,
-                        pred_ranges=tuple(zip(q.attrs, q.los, q.his)),
-                    )
-                )
+            stats = self._scan_stats(q, *raw[pos])
+            self._advance(q, stats, observe)
             out[pos] = stats
+
+    def _plan_burst(self, pending) -> Dict[tuple, list]:
+        """Plan every scan of a burst and group those that share
+        (table, attrs, agg_attr) and access path: {group key: [(pos,
+        query, plan)]}."""
+        groups: Dict[tuple, list] = {}
+        for pos, q in pending:
+            plan = self.planner.plan_scan(q)
+            key = (q.table, tuple(q.attrs), q.agg_attr) + plan.group_key
+            groups.setdefault(key, []).append((pos, q, plan))
+        return groups
+
+    def _dispatch_burst(self, groups, use_kernel: bool) -> Dict[int, tuple]:
+        """One dispatch per plan group, each read back in one transfer.
+        Returns pos -> (plan, the five raw numbers, the member's share
+        of the group's wall, tier, fault draw).  One fault draw per
+        GROUP dispatch (the dispatch is the fault domain); its straggler
+        latency is shared evenly across members."""
+        ts = self.clock_ms_i32()
+        raw: Dict[int, tuple] = {}
+        for group_key, members in groups.items():
+            table_name, attrs, agg_attr, _path, _idx = group_key
+            t = self.tables[table_name]
+            dev = t.device
+            los = torch.tensor([q.los for _, q, _ in members],
+                               dtype=torch.int32, device=dev)
+            his = torch.tensor([q.his for _, q, _ in members],
+                               dtype=torch.int32, device=dev)
+            tss = torch.full((len(members),), ts, dtype=torch.int32,
+                             device=dev)
+            plan = members[0][2]
+            r, wall = self._timed(
+                "engine.dispatch",
+                self.engine.scan_batch,
+                t,
+                plan.path,
+                plan.index_state,
+                plan.key_attrs,
+                attrs,
+                los,
+                his,
+                tss,
+                agg_attr,
+                use_kernel=use_kernel,
+                coverage=plan.pinned_coverage,
+            )
+            tier = self.engine.last_tier or ""
+            # Drain point between this group's dispatch and the next,
+            # outside the timed region: ``_timed`` waits for the
+            # group's kernels before it reads the clock, so a quantum's
+            # work never lands in a group's wall time.
+            self.engine.dispatch_complete()
+            retries, extra_ms = ((0, 0.0) if self.fault_injector is None
+                                 else self.fault_injector.scan_fault())
+            rows = torch.stack(list(r)).cpu().tolist()
+            for k, (pos, _q, plan_k) in enumerate(members):
+                raw[pos] = (plan_k, [col[k] for col in rows],
+                            wall / len(members), tier,
+                            (retries, extra_ms / len(members)))
+        return raw
 
     def _exec_join(self, q: Query, outer):
         """HIGH-S equi-join: count the pairs between the outer scan's

@@ -319,3 +319,97 @@ def test_zone_map_matches_reference():
         for a, b in zip(rdb.zone_map("narrow", attr),
                         pdb.zone_map("narrow", attr)):
             np.testing.assert_array_equal(b, a)
+
+
+# ---------------------------------------------------------------------------
+# Scan accounting: the single and the burst path against the reference
+# ---------------------------------------------------------------------------
+
+FAULTS = dict(seed=3, scan_error_rate=0.3, straggler_rate=0.3)
+ACCOUNT_CASES = [
+    (path, shards, faults)
+    for path in ("table", "hybrid", "hybrid_masked", "pure_vap", "pure_vbp")
+    for shards in (1, 2)
+    for faults in (False, True)
+    # test_torch_vbp.py::test_pure_vbp_scans_match_reference holds both
+    # fault-free pure_vbp cases (1 and 2 shards) already.
+    if not (path == "pure_vbp" and not faults)
+]
+
+
+def _accounting_db(pkg, src, path, shards, faults):
+    """A database of ``pkg`` whose LOW-S scans on attribute 1 plan
+    ``path``: none, a third-built VAP, a VAP with a scattered page list
+    under ``crack_on_scan``, a complete FULL index, or a VBP index
+    covering the sub-domain at position 0.3."""
+    if pkg is R:
+        db = R.Database(dict(src.tables), num_shards=shards)
+    else:
+        tables, _ = from_reference(
+            tables={k: [np.asarray(x) for x in t]
+                    for k, t in src.tables.items()}, device="cpu")
+        db = P.Database(tables, num_shards=shards)
+    db.shard_aware_tuning = shards > 1
+    db.crack_on_scan = path == "hybrid_masked"
+    if faults:
+        db.fault_injector = pkg.FaultInjector(pkg.FaultSchedule(**FAULTS))
+    desc = pkg.IndexDescriptor("narrow", (1,))
+    n_pages = src.tables["narrow"].n_pages
+    if path == "hybrid":
+        db.vap_build_step(db.create_index(desc, "vap"), pages=n_pages // 3)
+    elif path == "hybrid_masked":
+        db.vap_build_step(db.create_index(desc, "vap"), pages=4,
+                          page_list=[1, 6, 11, 17])
+    elif path == "pure_vap":
+        db.vap_build_step(db.create_index(desc, "full"), pages=n_pages)
+    elif path == "pure_vbp":
+        bi = db.create_index(desc, "vbp")
+        q = R.QueryGen(src, seed=0).low_s(attr=1, pos=0.3)
+        db.vbp_populate(bi, q if pkg is R else _port_query(q),
+                        max_add=src.tables["narrow"].capacity)
+    return db
+
+
+@pytest.mark.parametrize("path,shards,faults", ACCOUNT_CASES,
+                         ids=[f"{p}-{s}shard-{'faults' if f else 'clean'}"
+                              for p, s, f in ACCOUNT_CASES])
+def test_scan_accounting_matches_reference(path, shards, faults):
+    """The ``execute`` loop and ``execute_batch`` each against the
+    reference's, on the same statements: read scans on the planned
+    path, a join, an UPDATE and an INSERT.  Every ``ExecStats`` field
+    but ``wall_s`` and ``tier``, the clock, the monitor records, each
+    index's last use and the fault counters are equal."""
+    src = R.make_tuner_db(n_rows=2000, page_size=64, seed=6)
+    gen = R.QueryGen(src, selectivity=0.01, seed=7)
+    pos = 0.3 if path == "pure_vbp" else None
+    qs = [gen.low_s(attr=1, pos=pos) for _ in range(5)] + [gen.high_s()] + [
+        gen.low_s(attr=1, pos=pos) for _ in range(3)] + [
+        gen.low_u(attr=1), gen.ins(n=4), gen.low_s(attr=1, pos=pos)]
+    fields = [f.name for f in dataclasses.fields(R.ExecStats)
+              if f.name not in ("wall_s", "tier")]
+    for batched in (False, True):
+        rdb, pdb = (_accounting_db(pkg, src, path, shards, faults)
+                    for pkg in (R, P))
+        pqs = [_port_query(q) for q in qs]
+        assert pdb.planner.plan_scan(pqs[0]).path == path
+        if batched:
+            rs = rdb.execute_batch(qs)
+            ps = pdb.execute_batch(pqs, use_kernel=True)
+        else:
+            rs = [rdb.execute(q) for q in qs]
+            ps = [pdb.execute(q) for q in pqs]
+        for i, (a, b) in enumerate(zip(rs, ps)):
+            assert [getattr(b, f) for f in fields] == [
+                getattr(a, f) for f in fields], (batched, i, qs[i].template)
+        assert pdb.clock_ms == rdb.clock_ms
+        assert [dataclasses.astuple(r) for r in pdb.monitor.records] == [
+            dataclasses.astuple(r) for r in rdb.monitor.records]
+        assert {n: b.last_used_ms for n, b in pdb.indexes.items()} == {
+            n: b.last_used_ms for n, b in rdb.indexes.items()}
+        if faults:
+            fi, rfi = pdb.fault_injector, rdb.fault_injector
+            assert (fi.scan_retries, fi.straggler_events) == (
+                rfi.scan_retries, rfi.straggler_events)
+            assert fi.scan_retries + fi.straggler_events > 0
+        if path == "hybrid_masked":
+            assert sum(s.populate_units for s in ps) > 0.0

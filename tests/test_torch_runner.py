@@ -244,6 +244,85 @@ def test_client_cadence_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# The cycle clock: idle credit and catch-up storms, in both drivers
+# ---------------------------------------------------------------------------
+
+CLOCK_RUNS = {
+    # A phase-start throttle window (closed loop) or arrival gaps (the
+    # open loop's idle time) whose credit absorbs cycle work; the
+    # window's credit runs out before the window ends.
+    ("closed", "idle"): dict(tuning_interval_ms=0.1,
+                             idle_at_phase_start_ms=1.0),
+    ("open", "idle"): dict(tuning_interval_ms=0.5, arrival_stream="uniform",
+                           arrival_ms=1.5),
+    # Cycles due every 0.02 ms, each charging more than that: at most
+    # two fire per gap and the rest of the missed slots are dropped.
+    ("closed", "storm"): dict(tuning_interval_ms=0.02, max_cycles_per_gap=2),
+    ("open", "storm"): dict(tuning_interval_ms=0.02, max_cycles_per_gap=2,
+                            arrival_stream="bursty", arrival_ms=0.2,
+                            arrival_seed=7),
+}
+CYCLE_EXTRA_UNITS = 3000.0  # 0.3 simulated ms more work in every cycle
+
+
+class _CycleLog:
+    """A tuner that records the idle flag each cycle is run with and
+    adds ``CYCLE_EXTRA_UNITS`` to each cycle's work."""
+
+    def __init__(self, inner):
+        self.inner, self.flags = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def tuning_cycle(self, idle=False):
+        self.flags.append(idle)
+        return self.inner.tuning_cycle(idle=idle) + CYCLE_EXTRA_UNITS
+
+    def decide(self, idle=False):
+        self.flags.append(idle)
+        plan = self.inner.decide(idle=idle)
+        plan.decide_work += CYCLE_EXTRA_UNITS
+        return plan
+
+
+@pytest.mark.parametrize("mode", [None, "overlap"])
+@pytest.mark.parametrize("driver,case", sorted(CLOCK_RUNS))
+def test_cycle_clock_matches_reference(driver, case, mode):
+    """Every ``RunResult`` field but the wall-clock ones, the final
+    clock, the cycles fired and the idle flag of each equal the
+    reference's, with the serial schedule and with the overlap lane
+    draining against idle credit (its queue kept under the cap: past
+    it, drain sizes read the wall clock)."""
+    # Imported here: test_torch_build_service imports this module.
+    from test_torch_build_service import assert_same_run
+
+    out = []
+    for pkg, tsrc in ((R, SRC), (P, port_src())):
+        db = pkg.Database(dict(tsrc.tables))
+        tuner = _CycleLog(_tuner(pkg, db, "predictive"))
+        res = pkg.run_workload(db, tuner, hybrid("read_heavy")(pkg, tsrc),
+                               _cfg(pkg, read_batch_size=4,
+                                    async_tuning=mode, build_queue_cap=4096,
+                                    **CLOCK_RUNS[driver, case]))
+        out.append((res, db, tuner))
+    (ref, rdb, rtun), (port, pdb, ptun) = out
+    assert port.build_escalations == ref.build_escalations == 0
+    assert_same_run(ref, port)
+    assert pdb.clock_ms == rdb.clock_ms
+    assert ptun.cycles == rtun.cycles == len(ptun.flags) > 0
+    assert ptun.flags == rtun.flags
+    assert (port.slo_report is None) == (driver == "closed")
+    interval = CLOCK_RUNS[driver, case]["tuning_interval_ms"]
+    if case == "idle":
+        charged_all = port.tuner_work_units * P.RunConfig().time_per_unit_ms
+        assert port.tuner_charged_ms < charged_all
+        assert True in ptun.flags and False in ptun.flags
+    else:
+        assert ptun.cycles < 0.5 * pdb.clock_ms / interval
+
+
+# ---------------------------------------------------------------------------
 # The reference's runner oracles, held to the reference as well
 # ---------------------------------------------------------------------------
 
